@@ -17,7 +17,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from iamr_tpu.core.bc import BCRec, MathBC
+from iamr_tpu_torch.core.bc import BCRec, MathBC
 
 
 def _ghost_block(a, d, side, ng, bc: MathBC, bcval):

@@ -58,10 +58,6 @@ __device__ __forceinline__ T tsign(T a) {
   return a > T(0) ? T(1) : (a < T(0) ? T(-1) : T(0));
 }
 
-// Division by a grid spacing, as PyTorch's CUDA division by a Python scalar
-// does it: multiplication by the reciprocal formed in T.
-template <typename T>
-__device__ __forceinline__ T rdx(double dx) { return T(1.0) / T(dx); }
 
 // 2nd-order MC limited slope from (lo, c, hi): godunov.slope2
 template <typename T>
@@ -129,9 +125,13 @@ __host__ __device__ inline Ext3 face_ext(int d, const int* n) {
   return ext3(n[0] + (d == 0), n[1] + (d == 1), n[2] + (d == 2));
 }
 
+// rdx: 1 / dx in double. A division by a grid spacing is done as PyTorch's
+// CUDA division by a Python scalar does it: multiplication by the
+// reciprocal, formed in double and rounded to T (measured on PyTorch 2.11; a
+// reciprocal formed in T differs by an ulp for some spacings).
 struct Grid {
   int n[3];
-  double dx[3];
+  double rdx[3];
 };
 
 // the thread's (i0, i1, i2) over extents e; false past the ragged edge
@@ -189,7 +189,7 @@ __global__ void extrap_hat_kernel(ExtrapArgs<T> a) {
   int fc[3] = {t[0] - 1, t[1] - 1, t[2] - 1};
   fc[D] = t[D];
   const T dt = *a.dt;
-  const T dtdx = dt * rdx<T>(a.g.dx[D]);
+  const T dtdx = dt * T(a.g.rdx[D]);
   T qL[3], qR[3];
   T unL = T(0), unR = T(0);
   {
@@ -225,7 +225,7 @@ __global__ void extrap_face_kernel(ExtrapArgs<T> a) {
   Ext3 ge = ext3(n[0] + 6, n[1] + 6, n[2] + 6);
   Ext3 fge = ext3(n[0] + 2, n[1] + 2, n[2] + 2);
   const T dt = *a.dt;
-  const T dtdx = dt * rdx<T>(a.g.dx[D]);
+  const T dtdx = dt * T(a.g.rdx[D]);
   T sl[2], qc[2];
   lr_slopes(a.vel[D], ge, D, t, sl, qc);
   T cfl_L = dtdx * (qc[0] > T(0) ? qc[0] : T(0));
@@ -251,7 +251,7 @@ __global__ void extrap_face_kernel(ExtrapArgs<T> a) {
       T hq_lo = a.hq[e][D][he.at(lo)], hq_hi = a.hq[e][D][he.at(hi)];
       T vbar = T(0.5) * (hv_lo + hv_hi);
       T dq = hq_hi - hq_lo;
-      T tr = (T(-0.5) * dt) * rdx<T>(a.g.dx[e]) * vbar * dq;
+      T tr = (T(-0.5) * dt) * T(a.g.rdx[e]) * vbar * dq;
       corr = (e == (D == 0 ? 1 : 0)) ? tr : corr + tr;
     }
     T u = (side == 0 ? uL : uR) + corr;
@@ -296,7 +296,7 @@ __global__ void advect_hat_kernel(AdvectArgs<T> a) {
   const T dt = *a.dt;
   i64 o = he.at(t);
   T uf = a.umac_g[D][o];
-  T cfl = dt * rdx<T>(a.g.dx[D]) * uf;
+  T cfl = dt * T(a.g.rdx[D]) * uf;
   T sl[2], qc[2];
   lr_slopes(a.s, ge, D, fc, sl, qc);
   T pL = qc[0] + T(0.5) * (T(1.0) - cfl) * sl[0];
@@ -320,7 +320,7 @@ __global__ void advect_flux_kernel(AdvectArgs<T> a) {
   int gi[3] = {t[0] + 1, t[1] + 1, t[2] + 1};
   gi[D] = t[D];
   T u_real = a.umac_g[D][hd.at(gi)];
-  T cfl = dt * rdx<T>(a.g.dx[D]) * u_real;
+  T cfl = dt * T(a.g.rdx[D]) * u_real;
   T sl[2], qc[2];
   lr_slopes(a.s, ge, D, t, sl, qc);
   T pL = qc[0] + T(0.5) * (T(1.0) - cfl) * sl[0];
@@ -345,10 +345,10 @@ __global__ void advect_flux_kernel(AdvectArgs<T> a) {
       T uv_lo = a.umac_g[e][il], uv_hi = a.umac_g[e][ih];
       T tr;
       if (a.iconserv) {
-        tr = mhalf_dt * rdx<T>(a.g.dx[e]) * (uv_hi * hq_hi - uv_lo * hq_lo);
+        tr = mhalf_dt * T(a.g.rdx[e]) * (uv_hi * hq_hi - uv_lo * hq_lo);
       } else {
         T vbar = T(0.5) * (uv_lo + uv_hi);
-        tr = mhalf_dt * rdx<T>(a.g.dx[e]) * vbar * (hq_hi - hq_lo);
+        tr = mhalf_dt * T(a.g.rdx[e]) * vbar * (hq_hi - hq_lo);
       }
       corr = first ? tr : corr + tr;
       first = false;
@@ -363,7 +363,7 @@ __global__ void advect_flux_kernel(AdvectArgs<T> a) {
       ulo[D] = cd;
       int uhi[3] = {ulo[0], ulo[1], ulo[2]};
       uhi[D] += 1;
-      T dudx = (a.umac_g[D][hd.at(uhi)] - a.umac_g[D][hd.at(ulo)]) * rdx<T>(a.g.dx[D]);
+      T dudx = (a.umac_g[D][hd.at(uhi)] - a.umac_g[D][hd.at(ulo)]) * T(a.g.rdx[D]);
       T q_cc = a.s[ge.at(cell[0] + 3, cell[1] + 3, cell[2] + 3)];
       corr = corr + mhalf_dt * q_cc * dudx;
     }
@@ -389,10 +389,10 @@ __global__ void advect_aofs_kernel(AdvectArgs<T> a) {
     Ext3 fe = face_ext(d, n);
     int hi[3] = {t[0], t[1], t[2]};
     hi[d] += 1;
-    T term = (a.flux[d][fe.at(hi)] - a.flux[d][fe.at(t)]) * rdx<T>(a.g.dx[d]);
+    T term = (a.flux[d][fe.at(hi)] - a.flux[d][fe.at(t)]) * T(a.g.rdx[d]);
     div = d == 0 ? term : div + term;
     if (a.conv) {
-      T tu = (a.umac[d][fe.at(hi)] - a.umac[d][fe.at(t)]) * rdx<T>(a.g.dx[d]);
+      T tu = (a.umac[d][fe.at(hi)] - a.umac[d][fe.at(t)]) * T(a.g.rdx[d]);
       divu = d == 0 ? tu : divu + tu;
     }
   }
@@ -421,7 +421,7 @@ int extrap_plm_impl(const void* const* vel, const void* const* force, const void
   ExtrapArgs<T> a;
   for (int d = 0; d < 3; ++d) {
     a.g.n[d] = n[d];
-    a.g.dx[d] = dx[d];
+    a.g.rdx[d] = 1.0 / dx[d];
     a.vel[d] = static_cast<const T*>(vel[d]);
     a.force[d] = static_cast<const T*>(force[d]);
     a.out[d] = static_cast<T*>(out[d]);
@@ -459,7 +459,7 @@ int godunov_plm_multi_impl(int nc, const void* const* s, const void* const* forc
   AdvectArgs<T> a;
   for (int d = 0; d < 3; ++d) {
     a.g.n[d] = n[d];
-    a.g.dx[d] = dx[d];
+    a.g.rdx[d] = 1.0 / dx[d];
     a.umac[d] = static_cast<const T*>(umac[d]);
     a.umac_g[d] = static_cast<const T*>(umac_g[d]);
     a.periodic[d] = periodic[d];

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) as a ctypes library.
 
-The library is compiled with nvcc on first use into iamr_tpu_torch/_build/,
-named by a hash of the source and the flags, so a fresh checkout builds it
-once and an edited source rebuilds. There is no fallback: a failed build
+The library is compiled with nvcc on first use into iamr_tpu_torch/_build/
+(one nvcc per source, run in parallel, then one link), named by a hash of
+the sources and the flags, so a fresh checkout builds it once and an
+edited source rebuilds. There is no fallback: a failed build
 raises with nvcc's output. Nothing here runs at import time.
 
 Flags: sm_90a (Hopper), -O3, and -fmad=false so the kernels round op by op
@@ -19,20 +20,41 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "godunov_plm.cu",)
+SOURCES = tuple(_PKG / "csrc" / f for f in ("godunov_plm.cu", "mg_cell.cu", "mg_nodal.cu"))
 BUILD_DIR = _PKG / "_build"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
 _LIB = None
 BUILD_INFO = {}
+DTYPES = {torch.float32: 0, torch.float64: 1}  # the kernels' dtype codes
+
+
+def check_tensor(name, t, shape, dtype, device):
+    """Raise unless t has this dtype, device and shape and is contiguous."""
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{name}: {t.dtype} on {t.device}, want {dtype} on {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def check_rc(rc, name):
+    """Raise on a non-zero cudaError_t returned by a kernel entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
 
 
 def _nvcc() -> str:
@@ -46,7 +68,19 @@ def _nvcc() -> str:
     return exe
 
 
+def _run(cmd):
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    return proc.stdout + proc.stderr
+
+
 def _build() -> Path:
+    """Compile every source to an object file, all at once (one nvcc per
+    source), then link them into one shared library."""
     h = hashlib.sha256()
     for src in SOURCES:
         h.update(src.read_bytes())
@@ -56,21 +90,19 @@ def _build() -> Path:
         BUILD_INFO.update(path=str(so), seconds=0.0, cached=True, log="")
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, so)
-    BUILD_INFO.update(path=str(so), seconds=secs, cached=False,
-                      log=proc.stdout + proc.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, src.stem + ".o") for src in SOURCES]
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            logs = list(pool.map(
+                _run, [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(src)]
+                       for src, o in zip(SOURCES, objs)]))
+        tmp = os.path.join(tmpdir, "lib.so")
+        logs.append(_run([nvcc, *ARCH, "-shared", "-o", tmp, *objs]))
+        os.replace(tmp, so)
+    BUILD_INFO.update(path=str(so), seconds=time.perf_counter() - t0, cached=False,
+                      log="".join(logs))
     return so
 
 
@@ -80,12 +112,19 @@ def kernels():
     if _LIB is not None:
         return _LIB
     lib = ctypes.CDLL(str(_build()))
-    lib.extrap_plm.argtypes = [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P]
-    lib.extrap_plm.restype = ctypes.c_int
+    lib.extrap_plm.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P]
+    lib.extrap_plm.restype = _I
     lib.godunov_plm_multi.argtypes = [
-        ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _P, _P, _P, _P, _P, _P,
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ]
-    lib.godunov_plm_multi.restype = ctypes.c_int
+    lib.godunov_plm_multi.restype = _I
+    lib.mg_cell_gsrb.argtypes = [
+        _I, _I, _P, _I, _I, _P, _P, _P, _P, _D, _P, _D, _P, _P, _P, _P, _P, _P, _P,
+    ]
+    lib.mg_cell_gsrb.restype = _I
+    lib.mg_nodal_jacobi.argtypes = [
+        _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _D, _P, _D, _P, _P, _P,
+    ]
+    lib.mg_nodal_jacobi.restype = _I
     _LIB = lib
     return lib

@@ -14,11 +14,13 @@ NavierStokes::advance (Almgren-Bell-Colella-Howell-Welcome JCP 142, 1998):
      CN viscous solve
   6. nodal projection -> U^{n+1}, p^{n+1/2}, Gp
 
-Ported path: 3D, single level, PLM, the spectral (FFT) solvers of an
-all-periodic uniform-density run. Multigrid solves, EB, RZ, LES, multi-box
-levels, temperature, BDS/PPM and use_forces_in_trans raise
-NotImplementedError. The step runs eagerly on the tensors' device and reads
-nothing back to the host.
+Ported path: 3D, single level, PLM, with either the spectral (FFT) solvers
+of an all-periodic uniform-density run or the multigrid solvers (cell
+red-black Gauss-Seidel, FEM nodal Jacobi), to tolerance or for a fixed
+number of V-cycles. EB, RZ, LES, multi-box levels, temperature, BDS/PPM and
+use_forces_in_trans raise NotImplementedError. The step runs eagerly on the
+tensors' device; in fixed-cycle or spectral mode it reads nothing back to
+the host (tolerance mode reads one residual norm per V-cycle).
 """
 
 from __future__ import annotations
@@ -126,10 +128,7 @@ def est_time_step(cfg: NSConfig, state: NSState, hit=None):
     return cfg.cfl * torch.where(ok, dt, fallback)
 
 
-def _check_supported(cfg: NSConfig, spectral: bool):
-    if not spectral:
-        raise NotImplementedError("multigrid solves are not ported: the step needs "
-                                  "spectral=True (all-periodic, uniform rho)")
+def _check_supported(cfg: NSConfig):
     if cfg.dim != 3:
         raise NotImplementedError("2D is not ported")
     if cfg.geom.coord_sys != 0:
@@ -153,6 +152,7 @@ def _check_supported(cfg: NSConfig, spectral: bool):
 def advance(
     state: NSState,
     cfg: NSConfig,
+    fixed_mg_cycles=None,
     hit=None,
     return_umac: bool = False,
     bcp=None,
@@ -163,8 +163,11 @@ def advance(
 
     spectral: every implicit solve (MAC and nodal projection, CN diffusion)
     runs in Fourier space; the caller decides eligibility beforehand
-    (solvers.spectral.spectral_eligible)."""
-    _check_supported(cfg, spectral)
+    (solvers.spectral.spectral_eligible). Otherwise the solves are
+    multigrid: to the config's tolerances, or with fixed_mg_cycles
+    V-cycles for the projections and max(1, fixed_mg_cycles // 4) for the
+    diffusion solves (strongly diagonally dominant at CFL-limited dt)."""
+    _check_supported(cfg)
     if bcp is None:
         bcp = PhysBCProvider(cfg)
     dim = cfg.dim
@@ -176,6 +179,7 @@ def advance(
     periodic = tuple(cfg.geom.periodic)
     t_half = state.time + 0.5 * dt
     mf = mu_faces(cfg, dev)
+    diff_cycles = None if fixed_mg_cycles is None else max(1, fixed_mg_cycles // 4)
 
     # --- 1. predict MAC velocities -------------------------------------
     if cfg.vel_visc_coef > 0.0 and cfg.be_cn_theta != 1.0:
@@ -202,8 +206,9 @@ def advance(
     # --- 2. MAC projection ---------------------------------------------
     mac_bc, mac_bvals = bcp.mac_bc()
     umac, mac_phi, _ = mac_project(
-        umac, rho, cfg.dom, dx, bc=mac_bc, bvals=mac_bvals,
-        spectral_beta0=1.0 / invariant_mean(rho),
+        umac, rho, cfg.dom, dx, rtol=cfg.mac_tol, atol=cfg.mac_abs_tol,
+        fixed_cycles=fixed_mg_cycles, bc=mac_bc, bvals=mac_bvals,
+        spectral_beta0=(1.0 / invariant_mean(rho)) if spectral else None,
     )
     umac_g = bcp.grow_umac(umac)
 
@@ -244,8 +249,9 @@ def advance(
             sbc, sbv = bcp.scal_diff_bc(1 + t)
             s_star, _ = diff.diffuse_scalar(
                 s_star, s, rho_new, rho, beta_faces(cfg, coef, dev), dt, dx,
-                bcp._scal_rec, theta=cfg.be_cn_theta, poisson_bc=sbc, poisson_bvals=sbv,
-                spectral=(invariant_mean(rho_new), coef),
+                bcp._scal_rec, theta=cfg.be_cn_theta, rtol=cfg.visc_tol,
+                fixed_cycles=diff_cycles, poisson_bc=sbc, poisson_bvals=sbv,
+                spectral=(invariant_mean(rho_new), coef) if spectral else None,
             )
         trac_new.append(s_star)
     trac_new = torch.stack(trac_new)
@@ -257,23 +263,27 @@ def advance(
         for c in range(dim)
     ])
     if cfg.vel_visc_coef > 0.0:
+        # dt folded into alpha: (alpha - theta L) u = ..., alpha = rho_half / dt
         alpha = rho_half / dt
-        vbc, vbv = bcp.vel_diff_bc(0)
-        sp_args = (invariant_mean(alpha), cfg.vel_visc_coef)
-        vel_star = torch.stack([
-            diff.diffuse_scalar(
-                vel_star[c], vel[c], alpha, alpha, mf, 1.0, dx, recs[0],
-                theta=cfg.be_cn_theta, poisson_bc=vbc,
-                poisson_bvals=vbv, spectral=sp_args,
-            )[0]
-            for c in range(dim)
-        ])
+        sp_args = (invariant_mean(alpha), cfg.vel_visc_coef) if spectral else None
+        comps = []
+        for c in range(dim):
+            # the spectral solve takes component 0's (all-periodic) BCs
+            vbc, vbv = bcp.vel_diff_bc(0 if spectral else c)
+            comps.append(diff.diffuse_scalar(
+                vel_star[c], vel[c], alpha, alpha, mf, 1.0, dx, recs[0 if spectral else c],
+                theta=cfg.be_cn_theta, rtol=cfg.visc_tol, fixed_cycles=diff_cycles,
+                poisson_bc=vbc, poisson_bvals=vbv, spectral=sp_args,
+            )[0])
+        vel_star = torch.stack(comps)
 
     # --- 6. nodal projection ---------------------------------------------
     nodal_bc_, nodal_phi_bc = bcp.nodal()
     vel_new, p_new, gradp_new, _ = level_project(
-        vel_star, rho_half, p, gradp, dt, cfg.dom, dx, bc=nodal_bc_, phi_bc=nodal_phi_bc,
-        spectral_sigma0=1.0 / invariant_mean(rho_half),
+        vel_star, rho_half, p, gradp, dt, cfg.dom, dx, rtol=cfg.proj_tol,
+        atol=cfg.proj_abs_tol, fixed_cycles=fixed_mg_cycles, bc=nodal_bc_,
+        phi_bc=nodal_phi_bc,
+        spectral_sigma0=(1.0 / invariant_mean(rho_half)) if spectral else None,
     )
 
     # --- next dt ----------------------------------------------------------
@@ -289,20 +299,20 @@ def advance(
     return new_state
 
 
-def make_step(cfg: NSConfig, spectral: bool = False):
+def make_step(cfg: NSConfig, fixed_mg_cycles=None, spectral: bool = False):
     """Step function closed over the static config."""
     hit = make_hit_forcing(cfg)
-    return lambda s: advance(s, cfg, hit=hit, spectral=spectral)
+    return lambda s: advance(s, cfg, fixed_mg_cycles, hit=hit, spectral=spectral)
 
 
-def make_step_with_particles(cfg: NSConfig, spectral: bool = False):
+def make_step_with_particles(cfg: NSConfig, fixed_mg_cycles=None, spectral: bool = False):
     """Step that also advects tracer particles with the step's MAC
     velocities (AdvectWithUmac in advance)."""
     hit = make_hit_forcing(cfg)
 
     def step(state, parts):
         new_state, umac = advance(
-            state, cfg, hit=hit, return_umac=True, spectral=spectral,
+            state, cfg, fixed_mg_cycles, hit=hit, return_umac=True, spectral=spectral,
         )
         return new_state, advect_with_umac(parts, umac, state.dt, cfg.geom)
 

@@ -12,7 +12,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from iamr_tpu.core.bc import BCRec, SCALAR_BC, make_bcrec, velocity_bcrec
+from iamr_tpu_torch.core.bc import BCRec, SCALAR_BC, make_bcrec, velocity_bcrec
 from iamr_tpu_torch.core.fill import fill_ghost
 from iamr_tpu_torch.ops.godunov import grow_umac_transverse
 from iamr_tpu_torch.ops.mg import PoissonBC

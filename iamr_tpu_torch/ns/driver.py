@@ -1,9 +1,12 @@
-"""Single-level time loop (counterpart of iamr_tpu/ns/driver.py::run).
+"""Single-level initialisation and time loop (counterpart of
+iamr_tpu/ns/driver.py::initialize and ::run).
 
-The caller supplies the initial state (init_state plus a dt): the JAX
-package's driver.initialize starts with a nodal-multigrid velocity
-projection, which is not ported yet. Plotfiles, checkpoints (and with them
-restarts), ns.debug checks and particle output files are not ported either.
+initialize: initial conditions, the initial velocity projection (nodal
+multigrid, init_vel_iter times), the first dt (init_dt, or init_shrink times
+the CFL estimate) and init_iter pressure iterations. The hydrostatic initial
+pressure of gravity runs, EB and RZ raise NotImplementedError. Plotfiles,
+checkpoints (and with them restarts), ns.debug checks and particle output
+files are not ported.
 """
 
 from __future__ import annotations
@@ -12,9 +15,54 @@ from typing import Callable, Optional
 
 import torch
 
-from iamr_tpu_torch.ns.advance import make_step, make_step_with_particles
+from iamr_tpu_torch.ns.advance import (
+    advance,
+    est_time_step,
+    make_hit_forcing,
+    make_step,
+    make_step_with_particles,
+)
+from iamr_tpu_torch.ns.probs import init_state
 from iamr_tpu_torch.ns.state import NSConfig, NSState
+from iamr_tpu_torch.solvers.nodal_proj import initial_velocity_project
 from iamr_tpu_torch.solvers.spectral import spectral_eligible
+
+
+def initialize(cfg: NSConfig, fixed_mg_cycles=None, device=None,
+               init_iters: Optional[int] = None) -> NSState:
+    """The initial state on `device` (default: the card, cuda:0): ICs, the
+    initial velocity projection, the first dt and the initial pressure
+    iterations (each advances a trial step from the IC and keeps its p and
+    Gp). init_iters overrides cfg.init_iter. The solves are multigrid, to
+    the config's tolerances or with fixed_mg_cycles V-cycles, as in the JAX
+    package."""
+    if abs(cfg.gravity) > 1e-4:
+        raise NotImplementedError("the hydrostatic initial pressure (gravity) is not ported")
+    if cfg.geom.coord_sys != 0:
+        raise NotImplementedError("RZ is not ported")
+    device = torch.device("cuda", 0) if device is None else torch.device(device)
+    n_init_iter = cfg.init_iter if init_iters is None else init_iters
+    state = init_state(cfg, device)
+    if cfg.do_init_proj and cfg.init_vel_iter > 0:
+        # unit sigma unless proj.rho_wgt_vel_proj (the reference's default)
+        sig = state.rho if cfg.rho_wgt_vel_proj else torch.ones_like(state.rho)
+        vel = state.vel
+        for _ in range(cfg.init_vel_iter):
+            vel, _ = initial_velocity_project(
+                vel, sig, cfg.dom, cfg.geom.dx, rtol=cfg.proj_tol, atol=cfg.proj_abs_tol,
+                fixed_cycles=fixed_mg_cycles,
+            )
+        state = state._replace(vel=vel)
+    if cfg.init_dt > 0.0:
+        dt0 = torch.full((), cfg.init_dt, dtype=cfg.tdtype, device=device)
+    else:
+        dt0 = cfg.init_shrink * est_time_step(cfg, state)
+    state = state._replace(dt=dt0)
+    hit = make_hit_forcing(cfg)
+    for _ in range(max(0, n_init_iter)):
+        trial = advance(state, cfg, fixed_mg_cycles, hit=hit)
+        state = state._replace(p=trial.p, gradp=trial.gradp)
+    return state
 
 
 def steady_norm(prev: NSState, new: NSState):
@@ -27,22 +75,29 @@ def steady_norm(prev: NSState, new: NSState):
 
 def run(
     cfg: NSConfig,
-    state: NSState,
+    state: Optional[NSState] = None,
     max_steps: Optional[int] = None,
     callback: Optional[Callable[[int, NSState], None]] = None,
     verbose: bool = False,
+    fixed_mg_cycles=None,
     particles=None,
+    device=None,
 ):
-    """Advance `state` until max_step / stop_time / steady state. Returns
-    the final state, or (state, particles) when particles are given (they
-    advect with each step's MAC velocities)."""
+    """Advance until max_step / stop_time / steady state, from `state`, or
+    from initialize(cfg, fixed_mg_cycles, device) when it is None. The
+    spectral solvers run where spectral_eligible allows (ns.fft_solve),
+    the multigrid otherwise. Returns the final state, or (state, particles)
+    when particles are given (they advect with each step's MAC
+    velocities)."""
     if cfg.debug:
         raise NotImplementedError("ns.debug checks are not ported")
+    if state is None:
+        state = initialize(cfg, fixed_mg_cycles, device)
     sp = spectral_eligible(cfg, state.rho)
     if particles is not None:
-        pstep_fn = make_step_with_particles(cfg, spectral=sp)
+        pstep_fn = make_step_with_particles(cfg, fixed_mg_cycles, spectral=sp)
     else:
-        step_fn = make_step(cfg, spectral=sp)
+        step_fn = make_step(cfg, fixed_mg_cycles, spectral=sp)
 
     nmax = max_steps if max_steps is not None else (
         cfg.max_step if cfg.max_step >= 0 else 10**9

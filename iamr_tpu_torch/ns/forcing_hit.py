@@ -22,7 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from iamr_tpu.core.geometry import Geometry
+from iamr_tpu_torch.core.geometry import Geometry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,9 +114,9 @@ class HITForcing:
 
     def eval(self, geom: Geometry, time, dtype=torch.float32, device=None):
         """Force field (3, nx, ny, nz) at `time` (a 0-d tensor or a float),
-        on `device` (default: time's device)."""
+        on `device` (default: time's device; the card, cuda:0, for a float)."""
         if device is None:
-            device = time.device if isinstance(time, torch.Tensor) else "cpu"
+            device = time.device if isinstance(time, torch.Tensor) else "cuda:0"
         device = torch.device(device)
         if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
             raise RuntimeError("HITForcing.eval needs torch.backends.cuda."

@@ -12,7 +12,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from iamr_tpu.core.geometry import Geometry
+from iamr_tpu_torch.core.geometry import Geometry
 
 
 class Particles(NamedTuple):

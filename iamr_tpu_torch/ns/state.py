@@ -13,9 +13,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from iamr_tpu.config.parmparse import ParmParse
-from iamr_tpu.core.bc import BC_NAMES, DomainBC, PhysBC
-from iamr_tpu.core.geometry import Geometry
+from iamr_tpu_torch.config.parmparse import ParmParse
+from iamr_tpu_torch.core.bc import BC_NAMES, DomainBC, PhysBC
+from iamr_tpu_torch.core.geometry import Geometry
 
 
 class NSState(NamedTuple):
@@ -162,8 +162,9 @@ def config_from_inputs(pp: ParmParse, dim_hint: Optional[int] = None,
     """Build an NSConfig from a reference-format inputs table.
 
     ns.dtype (float32|float64, 32|64) sets the precision; without it the
-    precision follows `device`: float64 on the CPU (reference semantics),
-    float32 on an accelerator, as the JAX package chooses by backend."""
+    precision follows `device` (default: the card, cuda:0): float64 on the
+    CPU (reference semantics), float32 on the card, as the JAX package
+    chooses by backend."""
     amr = pp.scoped("amr")
     geo = pp.scoped("geometry")
     ns = pp.scoped("ns")
@@ -221,7 +222,7 @@ def config_from_inputs(pp: ParmParse, dim_hint: Optional[int] = None,
     elif dt_raw in ("64", "float64", "double"):
         dtype = "float64"
     else:
-        on_cpu = device is None or torch.device(device).type == "cpu"
+        on_cpu = device is not None and torch.device(device).type == "cpu"
         dtype = "float64" if on_cpu else "float32"
     f32 = dtype == "float32"
 

@@ -25,7 +25,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from iamr_tpu.core.bc import BCRec, MathBC
+from iamr_tpu_torch.core.bc import BCRec, MathBC
 from iamr_tpu_torch.ops.stencil import sl
 
 

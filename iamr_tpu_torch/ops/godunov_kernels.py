@@ -19,13 +19,11 @@ from typing import Optional, Sequence
 
 import torch
 
-from iamr_tpu.core.bc import BCRec, MathBC
-from iamr_tpu_torch.native import kernels
+from iamr_tpu_torch import native
+from iamr_tpu_torch.core.bc import BCRec, MathBC
 from iamr_tpu_torch.ops import godunov
 
 LAUNCHES = {"extrap_plm": 0, "godunov_plm_multi": 0}
-
-_DTYPES = {torch.float32: 0, torch.float64: 1}
 
 
 def reset_launches():
@@ -35,15 +33,6 @@ def reset_launches():
 
 def _ptrs(ts):
     return (ctypes.c_void_p * len(ts))(*[0 if t is None else t.data_ptr() for t in ts])
-
-
-def _check(name, t, shape, dtype, device):
-    if t.device != device or t.dtype != dtype:
-        raise ValueError(f"{name}: {t.dtype} on {t.device}, want {dtype} on {device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, want {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
 
 
 def _hat_sizes(n):
@@ -75,11 +64,6 @@ def _face_shape(n, d):
     return tuple(n[e] + (1 if e == d else 0) for e in range(3))
 
 
-def _call(rc, name):
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc}")
-
-
 # ---------------------------------------------------------------------------
 # K1: PLM ExtrapVelToFaces
 
@@ -104,23 +88,23 @@ def extrap_plm(vel_g, force_g, dt, dx: Sequence[float], ncell: Sequence[int]):
     if vel_g.device.type != "cuda" or len(n) != 3:
         raise ValueError(f"extrap_plm: 3D CUDA or CPU tensors only, got {vel_g.device}")
     dtype, dev = vel_g.dtype, vel_g.device
-    if dtype not in _DTYPES:
+    if dtype not in native.DTYPES:
         raise ValueError(f"extrap_plm: dtype {dtype}")
-    _check("vel_g", vel_g, (3,) + tuple(x + 6 for x in n), dtype, dev)
+    native.check_tensor("vel_g", vel_g, (3,) + tuple(x + 6 for x in n), dtype, dev)
     if force_g is not None:
-        _check("force_g", force_g, (3,) + tuple(x + 2 for x in n), dtype, dev)
-    lib = kernels()
+        native.check_tensor("force_g", force_g, (3,) + tuple(x + 2 for x in n), dtype, dev)
+    lib = native.kernels()
     dt_t = godunov._as_dt(dt, vel_g).reshape(())
     out = [torch.empty(_face_shape(n, d), dtype=dtype, device=dev) for d in range(3)]
     scratch = torch.empty(3 * sum(_hat_sizes(n)), dtype=dtype, device=dev)
     forces = [None] * 3 if force_g is None else [force_g[c] for c in range(3)]
     rc = lib.extrap_plm(
-        _DTYPES[dtype], _ptrs([vel_g[c] for c in range(3)]), _ptrs(forces),
+        native.DTYPES[dtype], _ptrs([vel_g[c] for c in range(3)]), _ptrs(forces),
         dt_t.data_ptr(), (ctypes.c_double * 3)(*[float(h) for h in dx]),
         (ctypes.c_int * 3)(*n), _ptrs(out), scratch.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _call(rc, "extrap_plm")
+    native.check_rc(rc, "extrap_plm")
     LAUNCHES["extrap_plm"] += 1
     return tuple(out)
 
@@ -164,21 +148,21 @@ def godunov_plm_multi(s_gs, umac, umac_g, dt, dx, ncell, iconservs, force_gs,
         return godunov_plm_multi_ref(s_gs, umac, umac_g, dt, dx, n, iconservs,
                                      force_gs, force_rows, convs, periodic)
     dtype, dev = s_gs[0].dtype, s_gs[0].device
-    if dev.type != "cuda" or len(n) != 3 or dtype not in _DTYPES:
+    if dev.type != "cuda" or len(n) != 3 or dtype not in native.DTYPES:
         raise ValueError(f"godunov_plm_multi: 3D f32/f64 CUDA or CPU tensors only, "
                          f"got {dtype} on {dev}")
     for j, s in enumerate(s_gs):
-        _check(f"s_gs[{j}]", s, tuple(x + 6 for x in n), dtype, dev)
+        native.check_tensor(f"s_gs[{j}]", s, tuple(x + 6 for x in n), dtype, dev)
     for d in range(3):
-        _check(f"umac[{d}]", umac[d], _face_shape(n, d), dtype, dev)
+        native.check_tensor(f"umac[{d}]", umac[d], _face_shape(n, d), dtype, dev)
         gshape = tuple(n[e] + (1 if e == d else 2) for e in range(3))
-        _check(f"umac_g[{d}]", umac_g[d], gshape, dtype, dev)
+        native.check_tensor(f"umac_g[{d}]", umac_g[d], gshape, dtype, dev)
     for k, f in enumerate(force_gs):
-        _check(f"force_gs[{k}]", f, tuple(x + 2 for x in n), dtype, dev)
+        native.check_tensor(f"force_gs[{k}]", f, tuple(x + 2 for x in n), dtype, dev)
     if len(force_rows) != nc or len(iconservs) != nc or len(convs) != nc:
         raise ValueError("godunov_plm_multi: per-field flag lists must have nc entries")
     per = tuple(bool(p) for p in periodic) if periodic is not None else (False,) * 3
-    lib = kernels()
+    lib = native.kernels()
     dt_t = godunov._as_dt(dt, s_gs[0]).reshape(())
     fx = torch.empty((nc,) + _face_shape(n, 0), dtype=dtype, device=dev)
     fy = torch.empty((nc,) + _face_shape(n, 1), dtype=dtype, device=dev)
@@ -188,14 +172,14 @@ def godunov_plm_multi(s_gs, umac, umac_g, dt, dx, ncell, iconservs, force_gs,
     forces = [force_gs[r] if r >= 0 else None for r in force_rows]
     ints = lambda xs: (ctypes.c_int * len(xs))(*[int(bool(x)) for x in xs])
     rc = lib.godunov_plm_multi(
-        _DTYPES[dtype], nc, _ptrs(list(s_gs)), _ptrs(forces), _ptrs(list(umac)),
+        native.DTYPES[dtype], nc, _ptrs(list(s_gs)), _ptrs(forces), _ptrs(list(umac)),
         _ptrs(list(umac_g)), dt_t.data_ptr(), ints(iconservs), ints(convs),
         ints(per), (ctypes.c_double * 3)(*[float(h) for h in dx]),
         (ctypes.c_int * 3)(*n), _ptrs(list(fx)), _ptrs(list(fy)), _ptrs(list(fz)),
         _ptrs(list(aofs)), scratch.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _call(rc, "godunov_plm_multi")
+    native.check_rc(rc, "godunov_plm_multi")
     LAUNCHES["godunov_plm_multi"] += 1
     return [((fx[j], fy[j], fz[j]), aofs[j]) for j in range(nc)]
 

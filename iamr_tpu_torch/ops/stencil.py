@@ -37,6 +37,17 @@ def mac_div(umac, dx):
     return out
 
 
+def checkerboard(shape, parity: int, dtype, device=None):
+    """Mask of cells with (i+j+k) % 2 == parity."""
+    total = None
+    for d in range(len(shape)):
+        view = [1] * len(shape)
+        view[d] = shape[d]
+        it = torch.arange(shape[d], device=device).reshape(view)
+        total = it if total is None else total + it
+    return (total % 2 == parity).to(dtype).expand(tuple(shape)).contiguous()
+
+
 def cell_to_face(a, d: int, bc_wrap: bool = False):
     """Arithmetic average of a cell array to the faces of dim d (shape +1 in
     d). Periodic (bc_wrap): both domain faces get the wrapped average; else

@@ -33,3 +33,9 @@ def invariant_sum(x):
 
 def invariant_mean(x):
     return invariant_sum(x) / x.numel()
+
+
+def invariant_matvec(A, v):
+    """A @ v with each row's contraction tree-reduced in the fixed pairing
+    order (for the small dense bottom-solve matrices)."""
+    return _tree_reduce_axis(A * v.unsqueeze(0), 1)

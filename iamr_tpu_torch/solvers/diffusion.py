@@ -3,9 +3,10 @@
 diffuse_scalar solves
     (alpha_op - theta dt div beta grad) S^{n+1}
         = alpha_new S* + (1-theta) dt div beta grad S^n
-Ported: the explicit (theta == 0) and the all-periodic spectral branches,
-and the explicit operator apply (getViscTerms). The multigrid branch waits
-for the multigrid slice and raises.
+The implicit solve is the all-periodic constant-coefficient FFT solve
+(spectral) or the cell multigrid (ops/mg.py), warm-started from S*;
+theta == 0 is the explicit update. The multi-box (union) solves are not
+ported.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from iamr_tpu.core.bc import BCRec, MathBC
+from iamr_tpu_torch.core.bc import BCRec, MathBC
 from iamr_tpu_torch.ops import mg
 from iamr_tpu_torch.ops.mg import DIRICHLET, NEUMANN, PERIODIC, PoissonBC
 from iamr_tpu_torch.solvers.spectral import solve_cell_helmholtz
@@ -81,15 +82,21 @@ def diffuse_scalar(
     bvals_lo=None,
     bvals_hi=None,
     theta: float = 0.5,
+    rtol: float = 1e-10,
+    atol: float = 1e-14,
+    fixed_cycles: Optional[int] = None,
     poisson_bc: Optional[PoissonBC] = None,
     poisson_bvals: Optional[Dict] = None,
     alpha_op=None,
     spectral=None,
 ):
-    """CN diffusion update after advection; returns (S^{n+1}, stats).
+    """CN diffusion update after advection; returns (S^{n+1}, (res, it)),
+    or (S^{n+1}, None) for the explicit theta == 0 update.
 
     spectral: optional (alpha0, beta0) scalars of an all-periodic
-    constant-coefficient solve (the FFT Helmholtz solve)."""
+    constant-coefficient solve (the FFT Helmholtz solve); otherwise the
+    cell multigrid solves to rtol/atol (or fixed_cycles V-cycles) from
+    s_star."""
     bc, bvals = _solver_bc(bcrec, s_star.ndim, bvals_lo, bvals_hi, poisson_bc, poisson_bvals)
     lap_old = apply_diffusion_op(s_old, beta, dx, bc, bvals)
     rhs = alpha_new * s_star + (1.0 - theta) * dt * lap_old
@@ -97,12 +104,14 @@ def diffuse_scalar(
         alpha_op = alpha_new
     if theta == 0.0:
         return rhs / alpha_op, None
-    if spectral is None:
-        raise NotImplementedError("the multigrid diffusion solve is not ported "
-                                  "(explicit and spectral only)")
-    alpha0, beta0 = spectral
-    s_new = solve_cell_helmholtz(rhs, alpha0, theta * dt * beta0, dx)
-    return s_new, (torch.zeros((), dtype=s_star.dtype, device=s_star.device), 0)
+    if spectral is not None:
+        alpha0, beta0 = spectral
+        s_new = solve_cell_helmholtz(rhs, alpha0, theta * dt * beta0, dx)
+        return s_new, (torch.zeros((), dtype=s_star.dtype, device=s_star.device), 0)
+    s_new, res, it = mg.mg_solve(rhs, alpha_op, beta, 1.0, theta * dt, dx, bc,
+                                 phi0=s_star, bvals=bvals, rtol=rtol, atol=atol,
+                                 fixed_cycles=fixed_cycles)
+    return s_new, (res, it)
 
 
 def visc_terms_component(

@@ -18,13 +18,14 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from iamr_tpu.config.parmparse import ParmParse
+from iamr_tpu.config.parmparse import ParmParse as JParmParse
 from iamr_tpu.ns import advance as ja
 from iamr_tpu.ns import particles as jpart
 from iamr_tpu.ns import probs as jprobs
 from iamr_tpu.ns import state as jstate
 from iamr_tpu.solvers.spectral import spectral_eligible as j_eligible
 from iamr_tpu_torch import convert
+from iamr_tpu_torch.config.parmparse import ParmParse as TParmParse
 from iamr_tpu_torch.ns import advance as ta
 from iamr_tpu_torch.ns import driver as tdriver
 from iamr_tpu_torch.ns import state as tstate
@@ -61,13 +62,12 @@ FIELDS = ("vel", "rho", "trac", "p", "gradp", "dt", "time")
 
 
 def _setup(text, dt, perturb=0.0):
-    pp = ParmParse.from_string(text)
-    jcfg = jstate.config_from_inputs(pp)
+    jcfg = jstate.config_from_inputs(JParmParse.from_string(text))
     jst = jprobs.init_state(jcfg)._replace(dt=jnp.asarray(dt, jnp.float64))
     if perturb:
         noise = perturb * np.random.RandomState(3).randn(*jst.vel.shape)
         jst = jst._replace(vel=jst.vel + jnp.asarray(noise))
-    tcfg = tstate.config_from_inputs(pp)
+    tcfg = tstate.config_from_inputs(TParmParse.from_string(text), device="cpu")
     tst = convert.state_from_numpy(
         {k: None if v is None else np.asarray(v) for k, v in jst._asdict().items()}, CPU
     )
