@@ -210,8 +210,8 @@ def _smooth2(phi, rhs, lev: MGLevelData, a, b, bc, nsweeps: int, want_resid: boo
     if nsweeps == 0 and not want_resid:
         return phi, None
     alpha = lev.alpha if a != 0.0 else None
-    return mg_kernels.cell_smooth(phi, rhs, alpha, lev.beta, lev.diag, a, b, lev.dx,
-                                  bc.lo, bc.hi, nsweeps, want_resid)
+    return mg_kernels.cell_smooth(phi, rhs, alpha, lev.beta, a, b, lev.dx, bc.lo, bc.hi,
+                                  nsweeps, want_resid)
 
 
 def _smooth_rb(phi, rhs, lev: MGLevelData, a, b, bc, nsweeps: int):
@@ -325,10 +325,7 @@ def _vcycle(rhs, levels, a, b, bc, lev_idx, nu1, nu2, nu_bottom, binv=None):
     e_c = _vcycle(_coarsen_cell(r, dim), levels, a, b, bc, lev_idx + 1, nu1, nu2,
                   nu_bottom, binv)
     phi = phi + _prolong(e_c, dim)
-    # the post-smooth requests (and discards) the residual when nu2 == nu1,
-    # as the JAX package does to share one fused kernel shape
-    phi, _ = _smooth2(phi, rhs, lev, a, b, bc, nu2, nu2 == nu1)
-    return phi
+    return _smooth_rb(phi, rhs, lev, a, b, bc, nu2)
 
 
 def union_dirichlet_coeffs(mask, alpha, beta, a, b, dx):

@@ -335,10 +335,8 @@ def _smooth2(phi, rhs, lev: NodalLevel, bc: NodalBC, nsweeps: int, want_resid: b
     mg_nodal_jacobi call (kernel on CUDA, plain on the CPU)."""
     if nsweeps == 0 and not want_resid:
         return phi, None
-    return mg_kernels.nodal_jacobi(
-        phi, lev.sigma, rhs, lev.dx, bc.lo, bc.hi, nsweeps, want_resid, lev.mask,
-        omega=lev.omega if omega is None else omega, diag=lev.diag,
-    )
+    return mg_kernels.nodal_jacobi(phi, lev.sigma, rhs, lev.dx, bc.lo, bc.hi, nsweeps,
+                                   want_resid, omega=lev.omega if omega is None else omega)
 
 
 def _jacobi(phi, rhs, lev: NodalLevel, bc: NodalBC, nsweeps: int,
@@ -466,10 +464,7 @@ def _nodal_vcycle(rhs, levels, bc, lev_idx, nu1, nu2, nu_bottom, binv=None):
     e_c = _nodal_vcycle(_restrict_node(r, bc), levels, bc, lev_idx + 1, nu1, nu2,
                         nu_bottom, binv)
     phi = phi + lev.mask * _prolong_node(e_c, dim)
-    # the post-smooth requests (and discards) the residual when nu2 == nu1,
-    # as the JAX package does to share one fused kernel shape
-    phi, _ = _smooth2(phi, rhs, lev, bc, nu2, nu2 == nu1)
-    return phi
+    return _jacobi(phi, rhs, lev, bc, nu2)
 
 
 def _nodal_fmg(rhs, levels, bc, nu1, nu2, nu_bottom, binv=None):

@@ -115,7 +115,7 @@ def test_plain_sweep_matches_tpu_kernels_f32(bcname, a):
     jphi, tphi = jnp.asarray(c["phi"]), torch.as_tensor(c["phi"])
     jrhs, trhs = jnp.asarray(c["rhs"]), torch.as_tensor(c["rhs"])
     t_alpha = tlev.alpha if a else None
-    args = (tphi, trhs, t_alpha, tlev.beta, tlev.diag, c["a"], c["b"], c["dx"], c["lo"], c["hi"])
+    args = (tphi, trhs, t_alpha, tlev.beta, c["a"], c["b"], c["dx"], c["lo"], c["hi"])
     phip = jmg._pad_phi(jphi, jbc)
     for colour in (0, 1):
         mask = jcheckerboard(c["shape"], colour, jnp.float32)

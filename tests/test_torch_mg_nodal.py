@@ -115,15 +115,14 @@ def test_plain_sweep_matches_tpu_kernels_f32(bcname):
     phip, sigp = jn._pad_nodes(jphi, jbc), _sigp(jlev.sigma, jbc)
     # K6: one sweep, and the masked residual
     ref = jpm.nodal_sweep(phip, sigp, jrhs, jupd, K, vol, update=True, interpret=True)
-    got, _ = tk.nodal_jacobi_ref(*base, 1, False, tlev.mask, omega=tlev.omega, diag=tlev.diag)
+    got, _ = tk.nodal_jacobi_ref(*base, 1, False, omega=tlev.omega)
     _close(ref, got, 1e-5)
     ref = jpm.nodal_sweep(phip, sigp, jrhs, jlev.mask, K, vol, update=False, interpret=True)
-    _close(ref, tk.nodal_jacobi_ref(*base, 0, True, tlev.mask)[1], 1e-5)
+    _close(ref, tk.nodal_jacobi_ref(*base, 0, True)[1], 1e-5)
     # K7: 2 sweeps + residual, omega * mask / diag formed in the kernel
     pf, rf = jpf.nodal_smooth_fused(jphi, jlev.sigma, jrhs, c["dx"], c["lo"], c["hi"],
                                     tlev.omega, 2, True, interpret=True, mode="whole")
-    got_p, got_r = tk.nodal_jacobi_ref(*base, 2, True, tlev.mask, omega=tlev.omega,
-                                       diag=tlev.diag)
+    got_p, got_r = tk.nodal_jacobi_ref(*base, 2, True, omega=tlev.omega)
     _close(pf, got_p, 1e-5)
     _close(rf, got_r, 1e-5)
     # K8: the same with upd and mask given as arrays (3D tiles only)
@@ -131,7 +130,7 @@ def test_plain_sweep_matches_tpu_kernels_f32(bcname):
         tupd = torch.as_tensor(np.array(jupd))
         pf, rf = jpf.nodal_smooth_sr(jphi, jlev.sigma, jrhs, jupd, jlev.mask, c["dx"],
                                      c["lo"], 2, True, interpret=True)
-        got_p, got_r = tk.nodal_jacobi_ref(*base, 2, True, tlev.mask, upd=tupd)
+        got_p, got_r = tk.nodal_jacobi_ref(*base, 2, True, upd=tupd, mask=tlev.mask)
         _close(pf, got_p, 1e-5)
         _close(rf, got_r, 1e-5)
 
