@@ -10,13 +10,19 @@ Phases (any failure raises and exits non-zero):
      without force, periodic and edge-filled ghosts (median, outlier
      fraction and max of |kernel - plain| / max|plain|, since a one-ulp
      difference can flip a thresholded upwind pick); f64 at 32^3 to 1e-12;
+     then the boxes no tile divides: 80x96x112, 40x24x21, 8^3 and 5x40x70
+     (dim 0 shorter than a march segment), periodic and not, f32 and (the
+     small ones) f64; every case reports whether it is bitwise equal;
   4. K2 godunov_plm_multi vs plain in the same form: nc=5 with the slice's
-     per-field flags, and nc=1 (K3);
+     per-field flags, and nc=1 (K3); on the ragged boxes nc = 1, 5 and 6
+     with mixed force rows, and nc = 9 (two chained launches) on 40x24x21;
   5. the slice at full width: forced HIT 256^3 f32 with 65536 tracer
      particles, init_state then dt = 5e-3, one warm-up step and 3 timed
-     steps through make_step_with_particles; launch counts of K1 and K2
-     must equal the steps taken; divergence diagnostics as bench.py forms
-     them; K1/K2 times beside their plain versions' at 256^3;
+     steps through make_step_with_particles; wrapper calls of K1 and K2
+     must equal the steps taken; one profiled step, in which K1 and K2 must
+     make one CUDA launch each; divergence diagnostics as bench.py forms
+     them; K1/K2 times beside their plain versions' at 256^3, their
+     registers, spills and shared memory;
   6. a HIT 32^3 f64 step with particles on the GPU against the same step on
      the CPU (plain path), to 1e-10 relative;
   7. the cell multigrid kernel mg_cell_gsrb vs its plain version: f32 at
@@ -90,6 +96,21 @@ SLICE_FLAGS = dict(
     force_rows=[0, 1, 2, -1, -1],
     convs=[True, True, True, False, True],
 )
+# six fields (ntrac = 2) with mixed force rows, and the two one-field cases
+SIX_FLAGS = dict(
+    iconservs=[False, False, False, True, False, True],
+    force_rows=[0, 1, 2, -1, 1, -1],
+    convs=[True, True, True, False, True, False],
+)
+# nine fields: more than one launch holds (8), so the call chains two
+NINE_FLAGS = dict(
+    iconservs=[False, False, False, True, False, True, False, True, False],
+    force_rows=[0, 1, 2, -1, 1, -1, 2, 0, -1],
+    convs=[True, True, True, False, True, False, True, False, False],
+)
+RAGGED_BOXES = ((80, 96, 112), (40, 24, 21), (8, 8, 8), (5, 40, 70))
+# CUDA launches of the Godunov kernels in one step, by kernel name
+GODUNOV_CUDA_LAUNCHES = {"extrap_plm_kernel": 1, "godunov_plm_multi_kernel": 1}
 F32_MEDIAN, F32_OUTLIER_TOL, F32_OUTLIER_FRAC = 1e-6, 1e-5, 1e-3
 # the multigrid kernels make no thresholded pick: one max bound each
 MG_TOL = {torch.float32: 1e-6, torch.float64: 1e-12}
@@ -120,9 +141,12 @@ def log(msg):
 
 def check_f32(name, pairs, gk):
     """Kernel vs plain in f32: median and outlier fraction bounded, max
-    reported (tie flips move single values by ~2|u|)."""
+    reported (tie flips move single values by ~2|u|), and whether every
+    output is bitwise equal."""
     worst = {"median": 0.0, "outliers": 0.0, "max": 0.0}
     max_abs = 0.0
+    pairs = list(pairs)
+    bitwise = all(torch.equal(got, ref) for got, ref in pairs)
     for got, ref in pairs:
         if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)} "
@@ -131,15 +155,17 @@ def check_f32(name, pairs, gk):
         worst = {k: max(worst[k], st[k]) for k in worst}
         max_abs = max(max_abs, float((got - ref).abs().max()))
     log(f"  {name}: median {worst['median']:.3e} outliers(>{F32_OUTLIER_TOL:g}) "
-        f"{worst['outliers']:.3e} max {worst['max']:.3e} (of max|plain|)")
+        f"{worst['outliers']:.3e} max {worst['max']:.3e} (of max|plain|), bitwise {bitwise}")
     if worst["median"] > F32_MEDIAN or worst["outliers"] > F32_OUTLIER_FRAC:
         raise AssertionError(f"{name}: kernel disagrees with plain: {worst}")
     return max_abs
 
 
 def check_f64(name, pairs, gk):
+    pairs = list(pairs)
+    bitwise = all(torch.equal(got, ref) for got, ref in pairs)
     worst = max(gk.tie_flip_stats(got, ref, 1e-12)["max"] for got, ref in pairs)
-    log(f"  {name}: max {worst:.3e} of max|plain| (limit 1e-12)")
+    log(f"  {name}: max {worst:.3e} of max|plain| (limit 1e-12), bitwise {bitwise}")
     if not worst <= 1e-12:
         raise AssertionError(f"{name}: f64 kernel disagrees with plain: {worst}")
 
@@ -148,35 +174,41 @@ def pad(a, ng, periodic):
     return np.pad(a, ng, mode="wrap" if periodic else "edge")
 
 
+def box(n):
+    return (n,) * 3 if isinstance(n, int) else tuple(n)
+
+
 def extrap_case(dev, dtype, n, periodic, force, seed=0):
+    n = box(n)
     rng = np.random.RandomState(seed)
-    vel_g = np.stack([pad(0.4 * rng.randn(n, n, n), 3, periodic) for _ in range(3)])
+    vel_g = np.stack([pad(0.4 * rng.randn(*n), 3, periodic) for _ in range(3)])
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
     fg = None
     if force:
-        fg = t(np.stack([pad(rng.randn(n, n, n), 1, periodic) for _ in range(3)]))
+        fg = t(np.stack([pad(rng.randn(*n), 1, periodic) for _ in range(3)]))
     dt = torch.tensor(0.004, dtype=dtype, device=dev)
-    return (t(vel_g), fg, dt, (1.0 / n,) * 3, (n, n, n))
+    return (t(vel_g), fg, dt, tuple(1.0 / x for x in n), n)
 
 
 def advect_case(dev, dtype, n, periodic, nc, seed=0):
     from iamr_tpu_torch.ops.godunov import grow_umac_transverse
 
+    n = box(n)
     rng = np.random.RandomState(seed)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
-    fields = [t(pad(rng.rand(n, n, n), 3, periodic)) for _ in range(nc)]
+    fields = [t(pad(rng.rand(*n), 3, periodic)) for _ in range(nc)]
     umac = []
     for d in range(3):
-        u = 0.3 * rng.randn(*[n + (1 if e == d else 0) for e in range(3)])
+        u = 0.3 * rng.randn(*[x + (1 if e == d else 0) for e, x in enumerate(n)])
         if periodic:
             u[tuple(slice(None) if e != d else -1 for e in range(3))] = \
                 u[tuple(slice(None) if e != d else 0 for e in range(3))]
         umac.append(t(u))
     umac = tuple(umac)
     ug = grow_umac_transverse(umac, (periodic,) * 3)
-    forces = [t(pad(rng.randn(n, n, n), 1, periodic)) for _ in range(3)]
+    forces = [t(pad(rng.randn(*n), 1, periodic)) for _ in range(3)]
     dt = torch.tensor(0.004, dtype=dtype, device=dev)
-    return fields, umac, ug, forces, dt, (1.0 / n,) * 3, (n, n, n)
+    return fields, umac, ug, forces, dt, tuple(1.0 / x for x in n), n
 
 
 def flat(out):
@@ -265,6 +297,11 @@ def record(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops):
             "bound_ms": b, "bound_by": by, "library_ms": None}
 
 
+def ragged_dtypes(n):
+    """f32 on every ragged box, f64 too on the small ones."""
+    return (torch.float32, torch.float64) if n[0] <= 40 else (torch.float32,)
+
+
 def phase_kernels(dev, gk):
     log("phase 3: K1 extrap_plm vs plain")
     for periodic in (True, False):
@@ -276,6 +313,15 @@ def phase_kernels(dev, gk):
         args = extrap_case(dev, torch.float64, 32, periodic, True)
         check_f64(f"K1 f64 32^3 periodic={periodic}",
                   zip(gk.extrap_plm(*args), gk.extrap_plm_ref(*args)), gk)
+
+    log("phase 3b: K1 on boxes no tile divides")
+    for i, n in enumerate(RAGGED_BOXES):
+        for k, periodic in enumerate((True, False)):
+            for dtype in ragged_dtypes(n):
+                args = extrap_case(dev, dtype, n, periodic, (i + k) % 2 == 0, seed=2)
+                check = check_f32 if dtype == torch.float32 else check_f64
+                check(f"K1 {str(dtype)[6:]} {n} periodic={periodic} force={args[1] is not None}",
+                      zip(gk.extrap_plm(*args), gk.extrap_plm_ref(*args)), gk)
 
     log("phase 4: K2 godunov_plm_multi vs plain (nc=5 slice flags; nc=1 = K3)")
     one = lambda ic, f: dict(iconservs=[ic], force_rows=[0 if f else -1], convs=[not ic])
@@ -292,6 +338,18 @@ def phase_kernels(dev, gk):
         check_f64(f"K2 f64 32^3 nc=5 periodic={periodic}",
                   zip(flat(run_multi(gk, case, SLICE_FLAGS, periodic)),
                       flat(run_multi(gk, case, SLICE_FLAGS, periodic, ref=True))), gk)
+    log("phase 4b: K2 on boxes no tile divides, nc = 1, 5, 6")
+    ragged = cases + [("nc=6 mixed forces", SIX_FLAGS)]
+    for n in RAGGED_BOXES:
+        for periodic in (True, False):
+            for dtype in ragged_dtypes(n):
+                check = check_f32 if dtype == torch.float32 else check_f64
+                chained = [("nc=9 chained", NINE_FLAGS)] if n == (40, 24, 21) else []
+                for label, flags in ragged + chained:
+                    case = advect_case(dev, dtype, n, periodic, len(flags["convs"]), seed=2)
+                    check(f"K2 {str(dtype)[6:]} {n} {label} periodic={periodic}",
+                          zip(flat(run_multi(gk, case, flags, periodic)),
+                              flat(run_multi(gk, case, flags, periodic, ref=True))), gk)
 
 
 def hit_config(n, dtype, dev, init_iter=0, fft_solve=-1):
@@ -351,6 +409,15 @@ def phase_slice(dev, gk, mk, card, n=256, nparticles=65536, steps=3):
         raise AssertionError("unexpected state shapes")
     cups = n**3 * steps / wall
     log(f"  {wall / steps:.6f} s/step, {cups:.6e} cells/s on {card}")
+    rows = profile_step(lambda: step(state, parts), card)
+    for name, want in GODUNOV_CUDA_LAUNCHES.items():
+        mine = [e for e in rows if name in e.key]
+        cuda_launches = sum(e.count for e in mine)
+        dev_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in mine) / 1e3
+        log(f"  {name}: {cuda_launches} CUDA launches, {dev_ms:.3f} ms device time in the "
+            f"profiled step (expected {want})")
+        if cuda_launches != want:
+            raise AssertionError(f"{name}: {cuda_launches} CUDA launches a step, not {want}")
 
     # the MAC divergence of one more step's projected umac
     dx = cfg.geom.dx
@@ -360,6 +427,13 @@ def phase_slice(dev, gk, mk, card, n=256, nparticles=65536, steps=3):
         raise AssertionError("MAC projection left a divergence above 1e-3 umax/dx")
 
     log(f"phase 5b: K1/K2 at {n}^3 f32 on main-path inputs, kernel vs plain")
+    from iamr_tpu_torch import native
+
+    for line in native.ptxas_report():
+        if "extrap_plm_kernelIf" in line or "godunov_plm_multi_kernelIf" in line:
+            log(f"  ptxas {line}")
+    for name in gk.LAUNCHES:
+        log(f"  {name}: {gk.smem_bytes(name, torch.float32)} bytes of shared memory a block (f32)")
     bcp = PhysBCProvider(cfg)
     forcing = (get_force(cfg, state.rho, state.time, hit) - state.gradp) / state.rho
     vel_g = bcp.fill_vel(state.vel, 3)
@@ -386,8 +460,10 @@ def phase_slice(dev, gk, mk, card, n=256, nparticles=65536, steps=3):
     k3_args = ([fields[3]], umac, umac_g, state.dt, dx, n3, [True], [], [-1], [False])
     k3_ms, k3_plain = timed_pair(lambda: gk.godunov_plm_multi(*k3_args, periodic=per),
                                  lambda: gk.godunov_plm_multi_ref(*k3_args, periodic=per))
+    # bytes: the kernel takes the face velocities from umac_g alone (its real
+    # part is umac), so umac is not among the arrays it must read
     k3_bound, k3_by = bound(
-        tensor_bytes(fields[3], umac, umac_g, gk.godunov_plm_multi(*k3_args, periodic=per)),
+        tensor_bytes(fields[3], umac_g, gk.godunov_plm_multi(*k3_args, periodic=per)),
         count_ops(lambda: gk.godunov_plm_multi_ref(*k3_args, periodic=per)))
     log(f"  K3 godunov nc=1 rho {k3_ms:.4f} ms, plain {k3_plain:.4f} ms, bound "
         f"{k3_bound:.4f} ms by {k3_by} ({card})")
@@ -402,7 +478,7 @@ def phase_slice(dev, gk, mk, card, n=256, nparticles=65536, steps=3):
         record("godunov_plm_multi", src,
                "iamr_tpu/ops/pallas_godunov.py:557, iamr_tpu/ops/pallas_godunov.py:398",
                launches["godunov_plm_multi"], k2_err, k2_ms, k2_plain,
-               tensor_bytes(fields, umac, umac_g, forces, k2_out),
+               tensor_bytes(fields, umac_g, forces, k2_out),
                count_ops(lambda: gk.godunov_plm_multi_ref(*k2_args, periodic=per))),
     ]
 
@@ -995,14 +1071,21 @@ def main() -> int:
     for line in native.ptxas_report():
         log(f"  ptxas {line}")
 
-    phase_kernels(dev, gk)
-    records = phase_slice(dev, gk, mk, smi)
-    phase_cpu_parity(dev)
-    phase_cell_kernel(dev, mk)
-    phase_nodal_kernel(dev, mk)
-    mg_records, mg_metrics = phase_mg_slice(dev, gk, mk, smi)
-    phase_entry_point(dev)
-    mg_metrics.update(phase_mlmg(dev, smi))
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        torch.cuda.synchronize()
+        log(f"  {phase.__name__} took {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed(phase_kernels, dev, gk)
+    records = timed(phase_slice, dev, gk, mk, smi)
+    timed(phase_cpu_parity, dev)
+    timed(phase_cell_kernel, dev, mk)
+    timed(phase_nodal_kernel, dev, mk)
+    mg_records, mg_metrics = timed(phase_mg_slice, dev, gk, mk, smi)
+    timed(phase_entry_point, dev)
+    mg_metrics.update(timed(phase_mlmg, dev, smi))
     log(f"metrics ({smi}): {json.dumps(mg_metrics)}")
     log(f"total {time.perf_counter() - t_start:.1f} s after the interpreter started")
 

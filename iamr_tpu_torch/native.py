@@ -138,12 +138,14 @@ def kernels():
     if _LIB is not None:
         return _LIB
     lib = ctypes.CDLL(str(_build()))
-    lib.extrap_plm.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P]
+    lib.extrap_plm.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P]
     lib.extrap_plm.restype = _I
     lib.godunov_plm_multi.argtypes = [
-        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ]
     lib.godunov_plm_multi.restype = _I
+    lib.godunov_plm_smem_bytes.argtypes = [_I, _I]
+    lib.godunov_plm_smem_bytes.restype = _I
     lib.mg_cell_gsrb.argtypes = [
         _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _D, _P, _D, _P, _P, _P, _P, _P, _P,
     ]

@@ -8,8 +8,30 @@
 
 Dispatch: a CPU tensor goes to the plain version (extrap_plm_ref,
 godunov_plm_multi_ref, built from ops/godunov.py); a CUDA tensor goes to the
-kernel (csrc/godunov_plm.cu, f32 or f64, any size) or raises. Each wrapper
-counts its kernel launches in LAUNCHES, one per call that launches.
+kernel (csrc/godunov_plm.cu, f32 or f64, any extents whose field with its 3
+ghosts stays below 2^31 elements, the kernels' 32-bit offsets) or raises.
+Each wrapper counts its kernel launches in LAUNCHES, one per call that
+launches.
+
+The kernels' design (csrc/godunov_plm.cu): one CUDA launch per call (K2: per
+8 fields), no hat scratch buffer. A block owns a tile of (dim 1, dim 2) and a
+segment of dim 0 along which it marches, one thread per cell of the tile
+grown by HAT_HALO; a cell's column along dim 0 (values, slopes, the dim-0 hat
+and predictor states) stays in registers, what its neighbours in the plane
+read (the plane with a halo of S_HALO, slopes, hat states, corrections,
+fluxes) goes through shared memory, and nothing but inputs and outputs
+touches device memory. Device-memory bytes bound both kernels; the design
+reads each input plane once per block (halos recomputed), forms a cell's
+slope once for its two faces and a cell's transverse term once for the faces
+of all directions, and runs the nc fields of a tile as neighbouring blocks so
+that umac_g meets in L2. What caps them on an H100 is the instruction stream
+without multiply-add contraction (PERF.md). K2 reads the face velocities from
+umac_g alone (its real part is umac, as grow_umac_transverse builds it), as
+the TPU kernel does: a caller's umac_g must be grow_umac_transverse(umac), or
+the card and the plain version (which takes the fluxes' velocities from
+umac) answer differently. The windows the design rests on are checked on the CPU
+(tests/test_torch_kernels.py): the plain versions evaluated on a tile with
+these halos equal the full-box result bit for bit.
 """
 
 from __future__ import annotations
@@ -24,6 +46,15 @@ from iamr_tpu_torch.core.bc import BCRec, MathBC
 from iamr_tpu_torch.ops import godunov
 
 LAUNCHES = {"extrap_plm": 0, "godunov_plm_multi": 0}
+# What a tile of outputs reads beyond itself, in cells: the field (3 ghosts)
+# S_HALO in every dim; force, umac_g and the hat states HAT_HALO in the
+# transverse dims. A conservative field's normal-ghost d(umac)/dx also takes
+# umac_g UMAC_NORMAL_HALO faces further along the normal (wrapped or the edge
+# copied at the domain boundary).
+S_HALO = 3
+HAT_HALO = 1
+UMAC_NORMAL_HALO = 1
+MAX_ELEMS = 2**31  # of a field with its ghosts
 
 
 def reset_launches():
@@ -31,20 +62,23 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
+def smem_bytes(name, dtype):
+    """Dynamic shared memory (bytes) of a block of kernel `name` (builds
+    the library on first use)."""
+    return native.kernels().godunov_plm_smem_bytes(
+        list(LAUNCHES).index(name), native.DTYPES[dtype])
+
+
+def _check_box(name, n):
+    """Raise unless n is a 3D box the kernels' 32-bit offsets can index."""
+    if len(n) != 3:
+        raise ValueError(f"{name}: 3D boxes only, got {n}")
+    if (n[0] + 6) * (n[1] + 6) * (n[2] + 6) >= MAX_ELEMS:
+        raise ValueError(f"{name}: box {n} with 3 ghosts has 2^31 elements or more")
+
+
 def _ptrs(ts):
     return (ctypes.c_void_p * len(ts))(*[0 if t is None else t.data_ptr() for t in ts])
-
-
-def _hat_sizes(n):
-    """Element counts of the hat arrays per face direction d: n_d + 1 in d,
-    n_e + 2 in the other dims (the kernels' scratch layout)."""
-    out = []
-    for d in range(3):
-        size = 1
-        for e in range(3):
-            size *= n[e] + (1 if e == d else 2)
-        out.append(size)
-    return out
 
 
 def tie_flip_stats(got, ref, rel_tol):
@@ -85,8 +119,9 @@ def extrap_plm(vel_g, force_g, dt, dx: Sequence[float], ncell: Sequence[int]):
     n = tuple(int(x) for x in ncell)
     if vel_g.device.type == "cpu":
         return extrap_plm_ref(vel_g, force_g, dt, dx, n)
-    if vel_g.device.type != "cuda" or len(n) != 3:
-        raise ValueError(f"extrap_plm: 3D CUDA or CPU tensors only, got {vel_g.device}")
+    _check_box("extrap_plm", n)
+    if vel_g.device.type != "cuda":
+        raise ValueError(f"extrap_plm: CUDA or CPU tensors only, got {vel_g.device}")
     dtype, dev = vel_g.dtype, vel_g.device
     if dtype not in native.DTYPES:
         raise ValueError(f"extrap_plm: dtype {dtype}")
@@ -96,12 +131,11 @@ def extrap_plm(vel_g, force_g, dt, dx: Sequence[float], ncell: Sequence[int]):
     lib = native.kernels()
     dt_t = godunov._as_dt(dt, vel_g).reshape(())
     out = [torch.empty(_face_shape(n, d), dtype=dtype, device=dev) for d in range(3)]
-    scratch = torch.empty(3 * sum(_hat_sizes(n)), dtype=dtype, device=dev)
     forces = [None] * 3 if force_g is None else [force_g[c] for c in range(3)]
     rc = lib.extrap_plm(
         native.DTYPES[dtype], _ptrs([vel_g[c] for c in range(3)]), _ptrs(forces),
         dt_t.data_ptr(), (ctypes.c_double * 3)(*[float(h) for h in dx]),
-        (ctypes.c_int * 3)(*n), _ptrs(out), scratch.data_ptr(),
+        (ctypes.c_int * 3)(*n), _ptrs(out),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     native.check_rc(rc, "extrap_plm")
@@ -137,8 +171,10 @@ def godunov_plm_multi(s_gs, umac, umac_g, dt, dx, ncell, iconservs, force_gs,
     """K2: fluxes and advective tendencies of all advected fields of a step.
 
     s_gs: nc fields with 3 ghosts; umac: MAC velocities on the real faces;
-    umac_g: grow_umac_transverse(umac); force_gs: forces (1 ghost) of the
-    fields that have one, force_rows[j] the row of field j or -1;
+    umac_g: grow_umac_transverse(umac); the kernel reads the face velocities
+    there alone, so its real part must equal umac (only shapes are checked);
+    force_gs: forces (1 ghost) of the fields that have one, force_rows[j] the
+    row of field j or -1;
     iconservs/convs: per-field conservative-correction and convective-output
     flags; periodic: per-dim flags (the normal-ghost d(umac)/dx wraps when
     periodic, else copies the edge). Returns [((fx, fy, fz), aofs)]."""
@@ -147,9 +183,10 @@ def godunov_plm_multi(s_gs, umac, umac_g, dt, dx, ncell, iconservs, force_gs,
     if s_gs[0].device.type == "cpu":
         return godunov_plm_multi_ref(s_gs, umac, umac_g, dt, dx, n, iconservs,
                                      force_gs, force_rows, convs, periodic)
+    _check_box("godunov_plm_multi", n)
     dtype, dev = s_gs[0].dtype, s_gs[0].device
-    if dev.type != "cuda" or len(n) != 3 or dtype not in native.DTYPES:
-        raise ValueError(f"godunov_plm_multi: 3D f32/f64 CUDA or CPU tensors only, "
+    if dev.type != "cuda" or dtype not in native.DTYPES:
+        raise ValueError(f"godunov_plm_multi: f32/f64 CUDA or CPU tensors only, "
                          f"got {dtype} on {dev}")
     for j, s in enumerate(s_gs):
         native.check_tensor(f"s_gs[{j}]", s, tuple(x + 6 for x in n), dtype, dev)
@@ -168,15 +205,14 @@ def godunov_plm_multi(s_gs, umac, umac_g, dt, dx, ncell, iconservs, force_gs,
     fy = torch.empty((nc,) + _face_shape(n, 1), dtype=dtype, device=dev)
     fz = torch.empty((nc,) + _face_shape(n, 2), dtype=dtype, device=dev)
     aofs = torch.empty((nc,) + n, dtype=dtype, device=dev)
-    scratch = torch.empty(sum(_hat_sizes(n)), dtype=dtype, device=dev)
     forces = [force_gs[r] if r >= 0 else None for r in force_rows]
     ints = lambda xs: (ctypes.c_int * len(xs))(*[int(bool(x)) for x in xs])
     rc = lib.godunov_plm_multi(
-        native.DTYPES[dtype], nc, _ptrs(list(s_gs)), _ptrs(forces), _ptrs(list(umac)),
-        _ptrs(list(umac_g)), dt_t.data_ptr(), ints(iconservs), ints(convs),
+        native.DTYPES[dtype], nc, _ptrs(list(s_gs)), _ptrs(forces), _ptrs(list(umac_g)),
+        dt_t.data_ptr(), ints(iconservs), ints(convs),
         ints(per), (ctypes.c_double * 3)(*[float(h) for h in dx]),
         (ctypes.c_int * 3)(*n), _ptrs(list(fx)), _ptrs(list(fy)), _ptrs(list(fz)),
-        _ptrs(list(aofs)), scratch.data_ptr(),
+        _ptrs(list(aofs)),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     native.check_rc(rc, "godunov_plm_multi")
