@@ -11,15 +11,17 @@ Phases (any failure raises and exits non-zero):
      fraction and max of |kernel - plain| / max|plain|, since a one-ulp
      difference can flip a thresholded upwind pick); f64 at 32^3 to 1e-12;
      then the boxes no tile divides: 80x96x112, 40x24x21, 8^3 and 5x40x70
-     (dim 0 shorter than a march segment), periodic and not, f32 and (the
-     small ones) f64; every case reports whether it is bitwise equal;
+     (dim 0 shorter than a march segment), periodic, not and Rayleigh-
+     Taylor's mix (periodic in x and y only), f32 and (the small ones) f64;
+     every case reports whether it is bitwise equal;
   4. K2 godunov_plm_multi vs plain in the same form: nc=5 with the slice's
-     per-field flags, and nc=1 (K3); on the ragged boxes nc = 1, 5 and 6
-     with mixed force rows, and nc = 9 (two chained launches) on 40x24x21;
+     per-field flags, nc=1 (K3), nc=6 with the temperature and with rho U
+     (do_mom_diff); on the ragged boxes nc = 1, 5 and 6 with mixed force
+     rows, and nc = 9 (two chained launches) on 40x24x21;
   5. the slice at full width: forced HIT 256^3 f32 with 65536 tracer
      particles, init_state then dt = 5e-3, one warm-up step and 3 timed
-     steps through make_step_with_particles; wrapper calls of K1 and K2
-     must equal the steps taken; one profiled step, in which K1 and K2 must
+     steps through make_step_with_particles; one wrapper call of K1 and
+     one of K2 a step, none of the MG kernels; one profiled step, in which K1 and K2 must
      make one CUDA launch each; divergence diagnostics as bench.py forms
      them; K1/K2 times beside their plain versions' at 256^3, their
      registers, spills and shared memory;
@@ -42,21 +44,47 @@ Phases (any failure raises and exits non-zero):
      (K6), 3 sweeps plus the residual with omega, mask and diag formed in
      the kernel (K7) and with caller-given upd and mask arrays (K8); then
      nsweeps 0 to 4 at 17^3 (the smallest smoothed level), 81x97x113,
-     41x25x22 periodic and 131x71 nodes;
+     41x25x22 periodic and 131x71 nodes, the two copies of the periodic
+     dims' duplicated nodes apart (each is updated from its own values);
   9. the slice on the fixed-cycle multigrid: HIT 256^3 f32 with 65536
      particles, fixed_mg_cycles=4, spectral off, 1 warm-up + 3 timed steps;
      wrapper calls per step equal across steps and to the V-cycle count;
      divergence diagnostics; one step with host syncs made errors; a
-     profiled step, whose CUDA launches of each MG kernel must equal its
-     wrapper calls (one launch per call); both MG kernels timed beside their
-     plain versions on the finest level's inputs;
+     profiled step, whose CUDA launches of each MG kernel must equal those
+     its wrapper counted (one a call; one a stage for a nodal call with a
+     periodic dim); both MG kernels timed beside their plain versions on
+     the finest level's inputs;
  10. the entry point: driver.initialize then driver.run for 2 steps in
      tolerance mode (HIT 128^3 f32, ns.fft_solve = 0, particles); a 32^3
      f64 MG step (fixed and tolerance mode), GPU against CPU, to 1e-10;
  11. the nodal MLMG to rtol 1e-11 (bench.py's problem at 256^3, mixed
      f32/f64), its true residual recomputed in numpy f64
      (ops/np_nodal.py), and the f32/f64 nodal-divergence pair of HIT 32^3
-     after 3 MG steps.
+     after 3 MG steps;
+ 12. the walled slice at full width: Rayleigh-Taylor 256x256x512 f32
+     (examples/inputs.3d.rayleigh_taylor: slip walls in z, gravity,
+     variable rho), driver.initialize
+     (hydrostatic pressure), fixed_mg_cycles=4, 1 warm-up + 3 timed
+     steps; wrapper calls per step equal to 1 + k(2(L-1)+1) per solve with
+     L of the port's non-cubic hierarchy, and one each of K1 and K2; no
+     host sync; a profiled step whose CUDA launches equal those the
+     wrappers counted; divergence diagnostics; peak device memory;
+ 12b. the kernels on that step's own inputs (captured from one step): K1
+     and K2 bit for bit with their plain versions, the finest MAC and CN
+     cell calls and the nodal projection call (as captured, its periodic
+     copies apart) to MG_TOL of their largest terms, each timed beside its
+     plain version;
+ 13. the entry point: driver.initialize (1 pressure iteration) and
+     driver.run for 2 steps in tolerance mode, RT 128x128x256 f32;
+ 14. GPU (kernels) vs CPU (plain), f64, initialize + 2 steps to 1e-10:
+     RT 16x16x32 (fixed and tolerance), HotSpot 16^3 (do_temp,
+     examples/inputs.3d.hotspot), RT with do_mom_diff and do_denminmax; a seeded 1e-3 velocity perturbation
+     moves the fluid at rest off its Riemann ties;
+ 15. 2D: RT 1024x2048 f32 fixed-cycle steps (plain Godunov, MG launch
+     counts, a profiled step), the 2D MG kernels vs plain on its finest
+     level, the lid-driven cavity 64^2 f64 GPU vs CPU;
+ 15b. a fluid at rest under gravity with a lateral outflow face, 64^3, 3
+     steps in f32 and f64: max|u| must stay below 2e-2 and 2e-3.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
@@ -64,6 +92,7 @@ a CUDA device. Imports no JAX.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -108,9 +137,20 @@ NINE_FLAGS = dict(
     force_rows=[0, 1, 2, -1, 1, -1, 2, 0, -1],
     convs=[True, True, True, False, True, False, True, False, False],
 )
+# the walled slice's field lists: u, v, w, rho, a tracer and the temperature
+# (convective, no force row); under do_mom_diff rho U conservative with the
+# velocity's force rows
+TEMP_FLAGS = dict(
+    iconservs=[False, False, False, True, False, False],
+    force_rows=[0, 1, 2, -1, -1, -1],
+    convs=[True, True, True, False, True, True],
+)
+MOM_DIFF_FLAGS = dict(
+    iconservs=[True, True, True, True, False, False],
+    force_rows=[0, 1, 2, -1, -1, -1],
+    convs=[False, False, False, False, True, True],
+)
 RAGGED_BOXES = ((80, 96, 112), (40, 24, 21), (8, 8, 8), (5, 40, 70))
-# CUDA launches of the Godunov kernels in one step, by kernel name
-GODUNOV_CUDA_LAUNCHES = {"extrap_plm_kernel": 1, "godunov_plm_multi_kernel": 1}
 F32_MEDIAN, F32_OUTLIER_TOL, F32_OUTLIER_FRAC = 1e-6, 1e-5, 1e-3
 # the multigrid kernels make no thresholded pick: one max bound each
 MG_TOL = {torch.float32: 1e-6, torch.float64: 1e-12}
@@ -170,8 +210,20 @@ def check_f64(name, pairs, gk):
         raise AssertionError(f"{name}: f64 kernel disagrees with plain: {worst}")
 
 
+# Rayleigh-Taylor's mix: periodic in x and y, walls in z
+MIXED = (True, True, False)
+
+
+def per3(periodic):
+    """Per-dim periodic flags from one flag or a tuple of three."""
+    return tuple(periodic) if isinstance(periodic, tuple) else (periodic,) * 3
+
+
 def pad(a, ng, periodic):
-    return np.pad(a, ng, mode="wrap" if periodic else "edge")
+    for d, p in enumerate(per3(periodic)):
+        a = np.pad(a, [(ng, ng) if e == d else (0, 0) for e in range(a.ndim)],
+                   mode="wrap" if p else "edge")
+    return a
 
 
 def box(n):
@@ -200,12 +252,12 @@ def advect_case(dev, dtype, n, periodic, nc, seed=0):
     umac = []
     for d in range(3):
         u = 0.3 * rng.randn(*[x + (1 if e == d else 0) for e, x in enumerate(n)])
-        if periodic:
+        if per3(periodic)[d]:
             u[tuple(slice(None) if e != d else -1 for e in range(3))] = \
                 u[tuple(slice(None) if e != d else 0 for e in range(3))]
         umac.append(t(u))
     umac = tuple(umac)
-    ug = grow_umac_transverse(umac, (periodic,) * 3)
+    ug = grow_umac_transverse(umac, per3(periodic))
     forces = [t(pad(rng.randn(*n), 1, periodic)) for _ in range(3)]
     dt = torch.tensor(0.004, dtype=dtype, device=dev)
     return fields, umac, ug, forces, dt, tuple(1.0 / x for x in n), n
@@ -219,7 +271,7 @@ def run_multi(gk, case, flags, periodic, ref=False):
     fields, umac, ug, forces, dt, dx, n = case
     fn = gk.godunov_plm_multi_ref if ref else gk.godunov_plm_multi
     return fn(fields, umac, ug, dt, dx, n, flags["iconservs"], forces,
-              flags["force_rows"], flags["convs"], periodic=(periodic,) * 3)
+              flags["force_rows"], flags["convs"], periodic=per3(periodic))
 
 
 def cuda_ms(fn, reps):
@@ -304,7 +356,7 @@ def ragged_dtypes(n):
 
 def phase_kernels(dev, gk):
     log("phase 3: K1 extrap_plm vs plain")
-    for periodic in (True, False):
+    for periodic in (True, False, MIXED):
         for force in (True, False):
             args = extrap_case(dev, torch.float32, 128, periodic, force)
             check_f32(f"K1 f32 128^3 periodic={periodic} force={force}",
@@ -316,7 +368,7 @@ def phase_kernels(dev, gk):
 
     log("phase 3b: K1 on boxes no tile divides")
     for i, n in enumerate(RAGGED_BOXES):
-        for k, periodic in enumerate((True, False)):
+        for k, periodic in enumerate((True, False, MIXED)):
             for dtype in ragged_dtypes(n):
                 args = extrap_case(dev, dtype, n, periodic, (i + k) % 2 == 0, seed=2)
                 check = check_f32 if dtype == torch.float32 else check_f64
@@ -326,8 +378,9 @@ def phase_kernels(dev, gk):
     log("phase 4: K2 godunov_plm_multi vs plain (nc=5 slice flags; nc=1 = K3)")
     one = lambda ic, f: dict(iconservs=[ic], force_rows=[0 if f else -1], convs=[not ic])
     cases = [("nc=5", SLICE_FLAGS), ("nc=1 conservative", one(True, False)),
-             ("nc=1 convective forced", one(False, True))]
-    for periodic in (True, False):
+             ("nc=1 convective forced", one(False, True)), ("nc=6 with T", TEMP_FLAGS),
+             ("nc=6 rho U", MOM_DIFF_FLAGS)]
+    for periodic in (True, False, MIXED):
         for label, flags in cases:
             case = advect_case(dev, torch.float32, 128, periodic, len(flags["convs"]))
             got = flat(run_multi(gk, case, flags, periodic))
@@ -341,7 +394,7 @@ def phase_kernels(dev, gk):
     log("phase 4b: K2 on boxes no tile divides, nc = 1, 5, 6")
     ragged = cases + [("nc=6 mixed forces", SIX_FLAGS)]
     for n in RAGGED_BOXES:
-        for periodic in (True, False):
+        for periodic in (True, False, MIXED):
             for dtype in ragged_dtypes(n):
                 check = check_f32 if dtype == torch.float32 else check_f64
                 chained = [("nc=9 chained", NINE_FLAGS)] if n == (40, 24, 21) else []
@@ -385,39 +438,19 @@ def phase_slice(dev, gk, mk, card, n=256, nparticles=65536, steps=3):
     torch.cuda.synchronize()
     log(f"  set-up {time.perf_counter() - t0:.3f} s")
 
-    gk.reset_launches()
-    mk.reset_launches()
-    t0 = time.perf_counter()
-    state, parts = step(state, parts)
-    torch.cuda.synchronize()
-    log(f"  warm-up step {time.perf_counter() - t0:.3f} s")
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        state, parts = step(state, parts)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(gk.LAUNCHES)
-    mg_launches = dict(mk.LAUNCHES)
-    taken = steps + 1
-    log(f"  launches in the main path: {launches}, {mg_launches} over {taken} steps")
-    if launches != {"extrap_plm": taken, "godunov_plm_multi": taken}:
-        raise AssertionError(f"kernel launch counts {launches} != {taken} steps")
-    if any(mg_launches.values()):
-        raise AssertionError(f"the spectral path launched multigrid kernels: {mg_launches}")
+    want = {"extrap_plm": 1, "godunov_plm_multi": 1, "mg_cell_gsrb": 0, "mg_nodal_jacobi": 0}
+    (state, parts), s_step, per_step = run_steps(lambda c: step(*c), (state, parts), steps,
+                                                 gk, mk)
+    log(f"  launches per step: {per_step[-1]} (expected {want}; the spectral path runs no MG)")
+    if any(c != want for c in per_step):
+        raise AssertionError(f"launch counts per step {per_step} != {want}")
+    launches = {k: sum(c[k] for c in per_step) for k in want}
     check_state(state, parts)
     if tuple(state.vel.shape) != (3, n, n, n) or tuple(parts.pos.shape) != (nparticles, 3):
         raise AssertionError("unexpected state shapes")
-    cups = n**3 * steps / wall
-    log(f"  {wall / steps:.6f} s/step, {cups:.6e} cells/s on {card}")
+    log(f"  {s_step:.6f} s/step, {n**3 / s_step:.6e} cells/s on {card}")
     rows = profile_step(lambda: step(state, parts), card)
-    for name, want in GODUNOV_CUDA_LAUNCHES.items():
-        mine = [e for e in rows if name in e.key]
-        cuda_launches = sum(e.count for e in mine)
-        dev_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in mine) / 1e3
-        log(f"  {name}: {cuda_launches} CUDA launches, {dev_ms:.3f} ms device time in the "
-            f"profiled step (expected {want})")
-        if cuda_launches != want:
-            raise AssertionError(f"{name}: {cuda_launches} CUDA launches a step, not {want}")
+    check_profiled_launches(rows, {"extrap_plm": 1, "godunov_plm_multi": 1})
 
     # the MAC divergence of one more step's projected umac
     dx = cfg.geom.dx
@@ -651,9 +684,10 @@ def nodal_bcs(dim):
             "outflow": ((D, N, P)[:dim], (N, D, P)[:dim])}
 
 
-def nodal_case(dev, dtype, cshape, lo, hi, seed=1):
-    """Random sigma (cells), phi and rhs (nodes, duplicated periodic DOF
-    consistent) and the finest level (mask, diag, omega)."""
+def nodal_case(dev, dtype, cshape, lo, hi, seed=1, apart=False):
+    """Random sigma (cells), phi and rhs (nodes; the duplicated periodic
+    DOF's copies equal, or differing when `apart`) and the finest level
+    (mask, diag, omega)."""
     from iamr_tpu_torch.ops import mg_nodal as mn
 
     rng = np.random.RandomState(seed)
@@ -661,7 +695,7 @@ def nodal_case(dev, dtype, cshape, lo, hi, seed=1):
     nshape = tuple(c + 1 for c in cshape)
     phi, rhs = rng.randn(*nshape), rng.randn(*nshape)
     for d in range(dim):
-        if lo[d] == mn.N_PERIODIC:
+        if lo[d] == mn.N_PERIODIC and not apart:
             for a in (phi, rhs):
                 a[tuple(-1 if e == d else slice(None) for e in range(dim))] = \
                     a[tuple(0 if e == d else slice(None) for e in range(dim))]
@@ -713,11 +747,12 @@ def phase_nodal_kernel(dev, mk):
             nodes = tuple(c + 1 for c in cshape)
             check_pairs(f"{str(dtype)[6:]} nodes {nodes} {label}",
                         nodal_contracts(mk, case), dtype, nodal_term(case))
-    log("phase 8b: mg_nodal_jacobi tiles, nsweeps 0-4 with and without the residual")
+    log("phase 8b: mg_nodal_jacobi tiles, nsweeps 0-4 with and without the residual, "
+        "the periodic copies apart (each updated from its own values)")
     for cshape, lo, hi in (((16, 16, 16), (P, P, P), (P, P, P)),
                            ((80, 96, 112), (D, N, P), (N, D, P)),
                            ((40, 24, 21), (P, P, P), (P, P, P)), ((130, 70), (N, P), (D, P))):
-        case = nodal_case(dev, torch.float32, cshape, lo, hi, seed=3)
+        case = nodal_case(dev, torch.float32, cshape, lo, hi, seed=3, apart=True)
         nodes = tuple(c + 1 for c in cshape)
         check_pairs(f"f32 nodes {nodes} lo={lo} hi={hi}",
                     nodal_contracts(mk, case, SWEEP_CALLS), torch.float32, nodal_term(case))
@@ -735,20 +770,30 @@ def mg_levels(cells, stop, nodes):
     return count
 
 
-def expected_mg_launches(n, cycles):
-    """Wrapper calls per step of the fixed-cycle MG step: each solve makes
-    one residual call, then per V-cycle 2 smoother calls per level above
-    the dense bottom plus one residual call. Cell: the MAC solve (cycles
-    V-cycles) and 3 CN velocity solves (max(1, cycles // 4) each); nodal:
-    the projection (cycles V-cycles)."""
+def expected_mg_launches(cells, cycles, cn_solves=3):
+    """Wrapper calls per step of the fixed-cycle MG step on a box of `cells`:
+    each solve makes one residual call, then per V-cycle 2 smoother calls
+    per level above the dense bottom plus one residual call. Cell: the MAC
+    solve (cycles V-cycles) and cn_solves CN solves (velocity components,
+    diffusing tracers, temperature; max(1, cycles // 4) each); nodal: the
+    projection (cycles V-cycles)."""
     from iamr_tpu_torch.ops.mg import DENSE_BOTTOM_DOFS
     from iamr_tpu_torch.ops.mg_nodal import NODAL_DENSE_BOTTOM_DOFS
 
     per = lambda levels, k: 1 + k * (2 * (levels - 1) + 1)
-    lc = mg_levels((n,) * 3, DENSE_BOTTOM_DOFS, 0)
-    ln = mg_levels((n,) * 3, NODAL_DENSE_BOTTOM_DOFS, 1)
-    return {"mg_cell_gsrb": per(lc, cycles) + 3 * per(lc, max(1, cycles // 4)),
+    lc = mg_levels(cells, DENSE_BOTTOM_DOFS, 0)
+    ln = mg_levels(cells, NODAL_DENSE_BOTTOM_DOFS, 1)
+    return {"mg_cell_gsrb": per(lc, cycles) + cn_solves * per(lc, max(1, cycles // 4)),
             "mg_nodal_jacobi": per(ln, cycles)}
+
+
+def cn_solves(cfg):
+    """The CN solves of a step: one per velocity component (with
+    viscosity), per diffusing tracer and for the conducting temperature."""
+    n = cfg.dim if cfg.vel_visc_coef > 0.0 else 0
+    n += sum(1 for t in range(cfg.ntrac)
+             if t < len(cfg.scal_diff_coefs) and cfg.scal_diff_coefs[t] > 0.0)
+    return n + int(cfg.do_temp and cfg.temp_cond_coef > 0.0)
 
 
 def check_state(state, parts=None):
@@ -762,18 +807,19 @@ def check_state(state, parts=None):
 
 def divergence_report(cfg, state, umac=None):
     """bench.py's diagnostics over umax/dx: the nodal divergence of the cell
-    velocities and, given umac, the MAC divergence of the projected face
-    velocities."""
-    from iamr_tpu_torch.ops.mg_nodal import N_PERIODIC, NodalBC, div_cell_to_node
+    velocities (with the domain's nodal BCs) and, given umac, the MAC
+    divergence of the projected face velocities."""
+    from iamr_tpu_torch.ops.mg_nodal import div_cell_to_node
+    from iamr_tpu_torch.solvers.nodal_proj import nodal_bc
 
     dx = cfg.geom.dx
     scale = max(float(state.vel.abs().max()), 1e-30) / dx[0]
-    bc = NodalBC((N_PERIODIC,) * 3, (N_PERIODIC,) * 3)
-    max_div = float(div_cell_to_node(tuple(state.vel), dx, bc).abs().max())
+    max_div = float(div_cell_to_node(tuple(state.vel), dx, nodal_bc(cfg.dom)).abs().max())
     out = {"max_div_over_umax_dx": max_div / scale}
     log(f"  max_div_after_step {max_div:.6e} max_div_over_umax_dx {max_div / scale:.6e}")
     if umac is not None:
-        max_mac = float(sum(torch.diff(umac[d], dim=d) / dx[d] for d in range(3)).abs().max())
+        max_mac = float(sum(torch.diff(umac[d], dim=d) / dx[d]
+                            for d in range(cfg.dim)).abs().max())
         out["max_mac_div_over_umax_dx"] = max_mac / scale
         log(f"  max_mac_div {max_mac:.6e} max_mac_div_over_umax_dx {max_mac / scale:.6e}")
     return out
@@ -782,11 +828,17 @@ def divergence_report(cfg, state, umac=None):
 def profile_step(fn, card, top=12):
     """Device time of one step by kernel name (torch.profiler), and the
     device's busy share of the profiled step's wall time; returns the CUDA
-    kernel rows (key, count, device time)."""
+    kernel rows (key, count, device time). The kernels' counts hold the
+    profiled step's calls afterwards."""
     from torch.profiler import ProfilerActivity, profile
+
+    from iamr_tpu_torch.ops import godunov_kernels as gk
+    from iamr_tpu_torch.ops import mg_kernels as mk
 
     fn()
     torch.cuda.synchronize()
+    gk.reset_launches()
+    mk.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -800,6 +852,26 @@ def profile_step(fn, card, top=12):
     for e in sorted(rows, key=lambda e: -dev_time(e))[:top]:
         log(f"    {dev_time(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
     return rows
+
+
+def check_profiled_launches(rows, want):
+    """The profiled step (rows of profile_step) made want[name] wrapper
+    calls of each kernel, and the CUDA launches its wrapper counted: one a
+    call (GRIDS: more where a call chains launches, as a nodal call with a
+    periodic dim does, one a stage)."""
+    from iamr_tpu_torch.ops import godunov_kernels as gk
+    from iamr_tpu_torch.ops import mg_kernels as mk
+
+    calls, grids = dict(gk.LAUNCHES, **mk.LAUNCHES), dict(gk.LAUNCHES, **mk.GRIDS)
+    for name, n in want.items():
+        mine = [e for e in rows if f"{name}_kernel" in e.key]
+        launches = sum(e.count for e in mine)
+        ms = sum(getattr(e, "self_device_time_total", 0.0) for e in mine) / 1e3
+        log(f"  {name}: {launches} CUDA launches ({grids[name]} counted), {ms:.3f} ms device "
+            f"time in the profiled step, {calls[name]} wrapper calls (expected {n})")
+        if calls[name] != n or launches != grids[name]:
+            raise AssertionError(f"{name}: {launches} CUDA launches, {grids[name]} counted, "
+                                 f"{calls[name]} calls, {n} expected")
 
 
 def cell_ops(cells, passes, want_resid):
@@ -830,30 +902,14 @@ def phase_mg_slice(dev, gk, mk, card, n=256, nparticles=65536, steps=3, cycles=4
     rng = np.random.RandomState(7)
     parts = from_positions(rng.rand(nparticles, 3) - 0.5, dev, dtype=cfg.tdtype)
     step = make_step_with_particles(cfg, cycles, spectral=False)
-    want = dict(expected_mg_launches(n, cycles), extrap_plm=1, godunov_plm_multi=1)
-    per_step = []
-
-    def one(state, parts):
-        gk.reset_launches()
-        mk.reset_launches()
-        out = step(state, parts)
-        per_step.append(dict(gk.LAUNCHES, **mk.LAUNCHES))
-        return out
-
-    t0 = time.perf_counter()
-    state, parts = one(state, parts)
-    torch.cuda.synchronize()
-    log(f"  warm-up step {time.perf_counter() - t0:.3f} s")
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        state, parts = one(state, parts)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    want = dict(expected_mg_launches((n,) * 3, cycles), extrap_plm=1, godunov_plm_multi=1)
+    (state, parts), s_step, per_step = run_steps(lambda c: step(*c), (state, parts), steps,
+                                                 gk, mk)
     log(f"  launches per step: {per_step[-1]} (expected {want})")
     if any(c != want for c in per_step):
         raise AssertionError(f"launch counts per step {per_step} != {want}")
     check_state(state, parts)
-    log(f"  {wall / steps:.6f} s/step, {n**3 * steps / wall:.6e} cells/s on {card}")
+    log(f"  {s_step:.6f} s/step, {n**3 / s_step:.6e} cells/s on {card}")
 
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -862,14 +918,7 @@ def phase_mg_slice(dev, gk, mk, card, n=256, nparticles=65536, steps=3, cycles=4
         torch.cuda.set_sync_debug_mode(0)
     log("  one more step under set_sync_debug_mode('error'): no host sync")
     rows = profile_step(lambda: step(state, parts), card)
-    for name in ("mg_cell_gsrb", "mg_nodal_jacobi"):
-        mine = [e for e in rows if f"{name}_kernel" in e.key]
-        cuda_launches = sum(e.count for e in mine)
-        dev_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in mine) / 1e3
-        log(f"  {name}: {cuda_launches} CUDA launches, {dev_ms:.3f} ms device time in the "
-            f"profiled step, {want[name]} wrapper calls")
-        if cuda_launches != want[name]:
-            raise AssertionError(f"{name}: {cuda_launches} CUDA launches for {want[name]} calls")
+    check_profiled_launches(rows, {k: want[k] for k in ("mg_cell_gsrb", "mg_nodal_jacobi")})
     _, umac_f = advance(state, cfg, cycles, hit=make_hit_forcing(cfg), return_umac=True)
     div = divergence_report(cfg, state, umac_f)
     if not div["max_mac_div_over_umax_dx"] < 1e-2:
@@ -952,7 +1001,7 @@ def phase_mg_slice(dev, gk, mk, card, n=256, nparticles=65536, steps=3, cycles=4
                "iamr_tpu/ops/pallas_fused.py:665",
                launches["mg_nodal_jacobi"], nodal_err, n_ms, n_plain,
                tensor_bytes(state.p, sigma, nrhs, n_out), nodal_ops(nodes, 2, 1)),
-    ], {"s_per_step": wall / steps, "cells_per_s": n**3 * steps / wall, **div}
+    ], {"s_per_step": s_step, "cells_per_s": n**3 / s_step, **div}
 
 
 def phase_entry_point(dev, n=128, nparticles=4096):
@@ -1043,6 +1092,371 @@ def phase_mlmg(dev, card, n=256, reps=3):
             "mlmg_final_rel_resid": rel, "nodal_div_f32_over_f64": ratio}
 
 
+# tests/test_outflow.py's fluid at rest under gravity with a lateral outflow
+# face, made 3D
+REST3D = """
+amr.n_cell = {n} {n} {n}
+ns.dtype = {dtype}
+ns.cfl = 0.5
+ns.init_iter = 2
+ns.gravity = -9.8
+geometry.prob_lo = 0. 0. 0.
+geometry.prob_hi = 1. 1. 1.
+geometry.is_periodic = 0 0 0
+ns.lo_bc = 4 4 5
+ns.hi_bc = 2 4 4
+prob.probtype = 1
+"""
+
+
+def inputs_config(text, dev):
+    from iamr_tpu_torch.config.parmparse import ParmParse
+    from iamr_tpu_torch.ns.state import config_from_inputs
+
+    return config_from_inputs(ParmParse.from_string(text), device=dev)
+
+
+def example_config(name, dev, *overrides):
+    """The config of examples/<name> with `key=value` overrides."""
+    from iamr_tpu_torch.config.parmparse import ParmParse
+    from iamr_tpu_torch.ns.state import config_from_inputs
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", name)
+    return config_from_inputs(ParmParse.from_file(path, overrides), device=dev)
+
+
+def rt_config(cells, dtype, dev, *overrides):
+    """Rayleigh-Taylor (examples/inputs.{2,3}d.rayleigh_taylor) at `cells`."""
+    return example_config(f"inputs.{len(cells)}d.rayleigh_taylor", dev,
+                          "amr.n_cell=" + " ".join(map(str, cells)), f"ns.dtype={dtype}",
+                          *overrides)
+
+
+def capture_calls(fn, targets):
+    """Run fn() with each wrapper of targets ((module, name, key)) wrapped:
+    key(args, kwargs) names a call worth keeping (or None); the first call
+    of each name is kept, its tensors cloned. Returns {name: (args, kwargs)}."""
+    kept, saved = {}, []
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, (tuple, list)):
+            return type(x)(clone(v) for v in x)
+        if isinstance(x, dict):
+            return {k: clone(v) for k, v in x.items()}
+        return x
+
+    for mod, name, key in targets:
+        orig = getattr(mod, name)
+        saved.append((mod, name, orig))
+
+        def wrap(*args, _orig=orig, _key=key, **kwargs):
+            k = _key(args, kwargs)
+            if k is not None and k not in kept:
+                kept[k] = (clone(args), clone(kwargs))
+            return _orig(*args, **kwargs)
+
+        setattr(mod, name, wrap)
+    try:
+        fn()
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+    return kept
+
+
+def step_kernel_inputs(cfg, state, cycles, gk, mk):
+    """The kernels' inputs of one fixed-cycle step from `state`: K1's, K2's,
+    the finest level's first MAC (a = 0) and CN (a != 0) cell calls with
+    sweeps and the residual, and the finest level's first nodal call with
+    sweeps and the residual (the projection)."""
+    from iamr_tpu_torch.ns import advance as adv
+
+    fine = tuple(cfg.geom.ncell)
+    nodes = tuple(x + 1 for x in fine)
+
+    def cell_key(args, kw):
+        phi, a, nsweeps, want = args[0], args[4], args[9], args[10]
+        if tuple(phi.shape) == fine and nsweeps > 0 and want:
+            return "cell_mac" if a == 0.0 else "cell_cn"
+        return None
+
+    def nodal_key(args, kw):
+        if tuple(args[0].shape) == nodes and args[6] > 0 and args[7]:
+            return "nodal"
+        return None
+
+    return capture_calls(lambda: adv.advance(state, cfg, cycles), [
+        (gk, "extrap_plm", lambda a, k: "extrap_plm"),
+        (adv, "godunov_plm_multi", lambda a, k: "godunov_plm_multi"),
+        (mk, "cell_smooth", cell_key),
+        (mk, "nodal_jacobi", nodal_key),
+    ])
+
+
+def copies_gap(args):
+    """How far a nodal call's periodic copies (node n - 1 against node 0)
+    of phi and rhs lie apart: a solve leaves them a rounding of the
+    residual's terms apart, and the kernel, as its plain version, updates
+    each from its own values."""
+    from iamr_tpu_torch.ops.mg_nodal import N_PERIODIC
+
+    gap = 0.0
+    for d, kind in enumerate(args[4]):
+        if kind == N_PERIODIC:
+            for a in (args[0], args[2]):
+                gap = max(gap, float((a.narrow(d, a.shape[d] - 1, 1) - a.narrow(d, 0, 1))
+                                     .abs().max()))
+    return gap
+
+
+def mg_pairs_on_step(label, kept, mk, dtype, card, timed=True):
+    """The captured MG calls (cell MAC, cell CN, nodal) against their plain
+    versions (check_pairs), and their times beside the plain versions'.
+    Returns {key: (max_abs_err, ms, plain_ms, bytes)}."""
+    out = {}
+    for key in ("cell_mac", "cell_cn", "nodal"):
+        if key not in kept:
+            continue
+        args, kw = kept[key]
+        if key == "nodal":
+            log(f"  {label} nodal call: the periodic copies of phi and rhs lie up to "
+                f"{copies_gap(args):.3e} apart (compared as they are)")
+        kern = mk.cell_smooth if key.startswith("cell") else mk.nodal_jacobi
+        plain = mk.cell_smooth_ref if key.startswith("cell") else mk.nodal_jacobi_ref
+        if key.startswith("cell"):
+            diag = mk.cell_diag(*args[2:9])
+        else:
+            diag = mk.nodal_diag_mask(args[1], args[3], args[4], args[5])[0]
+        got, ref = kern(*args, **kw), plain(*args, **kw)
+        # the residual after the sweeps sums diag * phi_out (a V-cycle's
+        # pre-smooth starts from phi = 0)
+        m = max(float(args[0].abs().max()), float(ref[0].abs().max()))
+        err = check_pairs(f"{label} {key} {tuple(args[0].shape)}", zip(got, ref), dtype,
+                          (m, float(diag.abs().max()) * m))
+        if timed:
+            k_ms, p_ms = timed_pair(lambda: kern(*args, **kw), lambda: plain(*args, **kw))
+            nbytes = tensor_bytes(args, kw, [t for t in got if t is not None])
+            log(f"  {label} {key}: {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card})")
+            out[key] = (err, k_ms, p_ms, nbytes)
+    return out
+
+
+def run_steps(step, state, steps, gk, mk):
+    """One warm-up step, then `steps` timed ones (host clock ending in a
+    synchronize); the kernels' wrapper calls of each step."""
+    per_step = []
+
+    def one(st):
+        gk.reset_launches()
+        mk.reset_launches()
+        out = step(st)
+        per_step.append(dict(gk.LAUNCHES, **mk.LAUNCHES))
+        return out
+
+    t0 = time.perf_counter()
+    state = one(state)
+    torch.cuda.synchronize()
+    log(f"  warm-up step {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = one(state)
+    torch.cuda.synchronize()
+    return state, (time.perf_counter() - t0) / steps, per_step
+
+
+def phase_rt3d(dev, gk, mk, card, cells=(256, 256, 512), steps=3, cycles=4):
+    from iamr_tpu_torch.ns import driver
+    from iamr_tpu_torch.ns.advance import advance, make_step
+
+    log(f"phase 12: Rayleigh-Taylor {cells} f32, fixed_mg_cycles={cycles}, initialize "
+        f"(hydrostatic pressure) + 1 warm-up + {steps} timed steps")
+    torch.zeros((), device=dev)  # the allocator starts before its statistics reset
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = rt_config(cells, "float32", dev)
+    t0 = time.perf_counter()
+    state = driver.initialize(cfg, fixed_mg_cycles=cycles, device=dev, init_iters=0)
+    torch.cuda.synchronize()
+    log(f"  initialize {time.perf_counter() - t0:.3f} s, dt {float(state.dt):.6e}")
+    step = make_step(cfg, cycles)
+    want = dict(expected_mg_launches(cells, cycles, cn_solves(cfg)), extrap_plm=1,
+                godunov_plm_multi=1)
+    state, s_step, per_step = run_steps(step, state, steps, gk, mk)
+    log(f"  launches per step: {per_step[-1]} (expected {want}; {cn_solves(cfg)} CN solves)")
+    if any(c != want for c in per_step):
+        raise AssertionError(f"launch counts per step {per_step} != {want}")
+    check_state(state)
+    ncells = int(np.prod(cells))
+    log(f"  {s_step:.6f} s/step, {ncells / s_step:.6e} cells/s on {card}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log("  one more step under set_sync_debug_mode('error'): no host sync")
+    rows = profile_step(lambda: step(state), card, top=15)
+    dev_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in rows) / 1e3
+    check_profiled_launches(rows, want)
+    _, umac = advance(state, cfg, cycles, return_umac=True)
+    div = divergence_report(cfg, state, umac)
+    if not div["max_mac_div_over_umax_dx"] < 1e-2:
+        raise AssertionError(f"MAC divergence after {cycles} V-cycles: {div}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  max_memory_allocated {peak / 2**30:.3f} GiB, max|u| "
+        f"{float(state.vel.abs().max()):.6e}, time {float(state.time):.6e}")
+    return cfg, state, {"rt3d_s_per_step": s_step, "rt3d_cells_per_s": ncells / s_step,
+                        "rt3d_device_ms": dev_ms, "rt3d_max_mem_gib": peak / 2**30,
+                        **{f"rt3d_{k}": v for k, v in div.items()}}
+
+
+def phase_rt3d_kernels(dev, gk, mk, card, cfg, state, cycles=4):
+    log(f"phase 12b: the kernels on Rayleigh-Taylor {cfg.geom.ncell}'s own inputs, "
+        "kernel vs plain (K1/K2 bit for bit; MG to the largest summed term)")
+    kept = step_kernel_inputs(cfg, state, cycles, gk, mk)
+    missing = {"extrap_plm", "godunov_plm_multi", "cell_mac", "cell_cn", "nodal"} - set(kept)
+    if missing:
+        raise AssertionError(f"the step made no such call: {missing}")
+    out = {}
+    for name, kern, plain in (("extrap_plm", gk.extrap_plm, gk.extrap_plm_ref),
+                              ("godunov_plm_multi", gk.godunov_plm_multi,
+                               gk.godunov_plm_multi_ref)):
+        args, kw = kept[name]
+        got, ref = kern(*args, **kw), plain(*args, **kw)
+        pairs = list(zip(got, ref)) if name == "extrap_plm" else list(zip(flat(got), flat(ref)))
+        err = check_f32(f"{name} RT {cfg.geom.ncell}", pairs, gk)
+        if not all(torch.equal(g, r) for g, r in pairs):
+            raise AssertionError(f"{name}: not bit for bit on Rayleigh-Taylor's inputs")
+        k_ms, p_ms = timed_pair(lambda: kern(*args, **kw), lambda: plain(*args, **kw))
+        # inputs the kernel reads (K2 takes the face velocities from umac_g
+        # alone) and its outputs
+        nbytes = tensor_bytes(args[:2] if name == "extrap_plm" else (args[0], args[2], args[7]),
+                              got)
+        b, by = bound(nbytes, count_ops(lambda: plain(*args, **kw)))
+        log(f"  {name}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b:.4f} ms by {by} "
+            f"({100 * b / k_ms:.1f}%), nc = {len(args[0]) if name != 'extrap_plm' else 3} "
+            f"({card})")
+        out[name] = (err, k_ms, p_ms)
+    for key, (err, k_ms, p_ms, nbytes) in mg_pairs_on_step("RT", kept, mk, torch.float32,
+                                                          card).items():
+        log(f"  {key}: bytes bound {1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms")
+        out[key] = (err, k_ms, p_ms)
+    return {f"rt3d_{k}_ms": v[1] for k, v in out.items()}
+
+
+def phase_rt3d_entry(dev, cells=(128, 128, 256)):
+    from iamr_tpu_torch.ns import driver
+
+    log(f"phase 13: driver.initialize (hydrostatic pressure, 1 pressure iteration) + "
+        f"driver.run 2 steps, tolerance mode, Rayleigh-Taylor {cells} f32")
+    cfg = rt_config(cells, "float32", dev)
+    t0 = time.perf_counter()
+    state = driver.initialize(cfg, device=dev)
+    state = driver.run(cfg, state, max_steps=2)
+    torch.cuda.synchronize()
+    check_state(state)
+    log(f"  initialize + 2 steps: {time.perf_counter() - t0:.3f} s, time "
+        f"{float(state.time):.6e}, max|u| {float(state.vel.abs().max()):.6e}")
+
+
+def gpu_vs_cpu(label, cfg, dev, cycles, steps=2, perturb=1e-3):
+    """initialize (no pressure iterations) on both devices, compared; the
+    CPU state with a seeded velocity perturbation on both; `steps` steps of
+    make_step on both, compared: max|GPU - CPU| / max|CPU| <= 1e-10 on
+    every field."""
+    from iamr_tpu_torch.ns import driver
+    from iamr_tpu_torch.ns.advance import make_step
+
+    cpu = torch.device("cpu")
+    init = [driver.initialize(cfg, fixed_mg_cycles=cycles, device=w, init_iters=0)
+            for w in (cpu, dev)]
+    noise = perturb * np.random.RandomState(3).randn(*init[0].vel.shape)
+    st = init[0]._replace(vel=init[0].vel + torch.as_tensor(noise))
+    states = [st, type(st)(*[None if t is None else t.to(dev) for t in st])]
+    step = make_step(cfg, cycles)
+    for _ in range(steps):
+        states = [step(v) for v in states]
+    worst = 0.0
+    for stage, pair in (("init", init), (f"{steps} steps", states)):
+        for k in pair[0]._fields:
+            ref, got = getattr(pair[0], k), getattr(pair[1], k)
+            if ref is None and got is None:
+                continue
+            rel = rel_err(got.cpu(), ref)
+            worst = max(worst, rel)
+            if not rel <= 1e-10:
+                raise AssertionError(f"{label} {stage}: GPU disagrees with CPU on {k}: {rel}")
+    log(f"  {label}, fixed_mg_cycles={cycles}: max rel diff {worst:.3e} over every field "
+        "(limit 1e-10)")
+    return worst
+
+
+def phase_gpu_cpu_walled(dev):
+    log("phase 14: walled runs, GPU (kernels) vs CPU (plain), f64, initialize + 2 steps")
+    rt = rt_config((16, 16, 32), "float64", dev)
+    out = {}
+    for cycles in (4, None):
+        out[f"rt3d_{cycles}"] = gpu_vs_cpu("RT (16, 16, 32)", rt, dev, cycles)
+    out["hotspot3d"] = gpu_vs_cpu("HotSpot 16^3 (do_temp)", example_config(
+        "inputs.3d.hotspot", dev, "ns.dtype=float64"), dev, 4)
+    out["rt3d_mom_diff"] = gpu_vs_cpu(
+        "RT (16, 16, 32) do_mom_diff do_denminmax",
+        rt_config((16, 16, 32), "float64", dev, "ns.do_mom_diff=1", "ns.do_denminmax=1"),
+        dev, 4)
+    return max(out.values())
+
+
+def phase_2d(dev, gk, mk, card, cells=(1024, 2048), steps=3, cycles=4):
+    from iamr_tpu_torch.ns import driver
+    from iamr_tpu_torch.ns.advance import make_step
+
+    log(f"phase 15: Rayleigh-Taylor 2D {cells} f32, fixed_mg_cycles={cycles}, 1 warm-up + "
+        f"{steps} timed steps (Godunov plain in 2D by design)")
+    cfg = rt_config(cells, "float32", dev)
+    state = driver.initialize(cfg, fixed_mg_cycles=cycles, device=dev, init_iters=0)
+    step = make_step(cfg, cycles)
+    want = dict(expected_mg_launches(cells, cycles, cn_solves(cfg)), extrap_plm=0,
+                godunov_plm_multi=0)
+    state, s_step, per_step = run_steps(step, state, steps, gk, mk)
+    log(f"  launches per step: {per_step[-1]} (expected {want})")
+    if any(c != want for c in per_step):
+        raise AssertionError(f"launch counts per step {per_step} != {want}")
+    check_state(state)
+    ncells = int(np.prod(cells))
+    log(f"  {s_step:.6f} s/step, {ncells / s_step:.6e} cells/s on {card}")
+    rows = profile_step(lambda: step(state), card, top=8)
+    dev_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in rows) / 1e3
+    check_profiled_launches(rows, want)
+    log("phase 15: the 2D MG kernels vs plain on Rayleigh-Taylor 2D's finest level")
+    mg_pairs_on_step("RT 2D", step_kernel_inputs(cfg, state, cycles, gk, mk), mk,
+                     torch.float32, card)
+    log("phase 15: the lid-driven cavity 64^2 (examples/inputs.2d.lid_driven_cavity), "
+        "f64, GPU vs CPU")
+    lid = example_config("inputs.2d.lid_driven_cavity", dev, "ns.dtype=float64")
+    worst = max(gpu_vs_cpu("lid 64^2", lid, dev, cycles) for cycles in (4, None))
+    return {"rt2d_s_per_step": s_step, "rt2d_cells_per_s": ncells / s_step,
+            "rt2d_device_ms": dev_ms, "lid_gpu_cpu_rel": worst}
+
+
+def phase_hydrostatic_rest(dev, n=64, steps=3):
+    from iamr_tpu_torch.ns import driver
+
+    log(f"phase 15b: fluid at rest under gravity with a lateral outflow face, {n}^3, "
+        f"{steps} steps (driver.run from initialize), f32 and f64")
+    out = {}
+    for dtype in ("float32", "float64"):
+        cfg = inputs_config(REST3D.format(n=n, dtype=dtype), dev)
+        state = driver.run(cfg, max_steps=steps, device=dev)
+        check_state(state)
+        out[dtype] = float(state.vel.abs().max())
+        log(f"  {dtype}: max|u| {out[dtype]:.6e} after {steps} steps, max|p| "
+            f"{float(state.p.abs().max()):.6e}")
+    # the JAX package's 2D test holds the fluid to 2e-3
+    if not out["float64"] < 2e-3 or not out["float32"] < 2e-2:
+        raise AssertionError(f"the fluid at rest moved: {out}")
+    return {"rest_max_u_f32": out["float32"], "rest_max_u_f64": out["float64"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -1086,6 +1500,14 @@ def main() -> int:
     mg_records, mg_metrics = timed(phase_mg_slice, dev, gk, mk, smi)
     timed(phase_entry_point, dev)
     mg_metrics.update(timed(phase_mlmg, dev, smi))
+    rt_cfg, rt_state, rt_metrics = timed(phase_rt3d, dev, gk, mk, smi)
+    mg_metrics.update(rt_metrics)
+    mg_metrics.update(timed(phase_rt3d_kernels, dev, gk, mk, smi, rt_cfg, rt_state))
+    del rt_state
+    timed(phase_rt3d_entry, dev)
+    mg_metrics["walled_gpu_cpu_rel"] = timed(phase_gpu_cpu_walled, dev)
+    mg_metrics.update(timed(phase_2d, dev, gk, mk, smi))
+    mg_metrics.update(timed(phase_hydrostatic_rest, dev))
     log(f"metrics ({smi}): {json.dumps(mg_metrics)}")
     log(f"total {time.perf_counter() - t_start:.1f} s after the interpreter started")
 

@@ -19,8 +19,9 @@ from iamr_tpu_torch.ns.state import NSState
 
 def state_from_numpy(fields, device, dtype: Optional[torch.dtype] = None) -> NSState:
     """NSState from a mapping or NamedTuple of array-likes with the fields of
-    NSState (vel, rho, trac, temp, p, gradp, time, dt[, dsdt]). dtype
-    defaults to the arrays' own."""
+    NSState (vel, rho, trac, temp, p, gradp, time, dt[, dsdt]): the
+    temperature and the dsdt of do_temp runs come across with the rest, a
+    missing or None dsdt stays None. dtype defaults to the arrays' own."""
     if hasattr(fields, "_asdict"):
         fields = fields._asdict()
 

@@ -34,12 +34,19 @@
 // (K8) the update is phi + upd r and the residual mask * r with the given
 // mask. Ghosts follow _pad_nodes / _pad_cells: periodic dims wrap with the
 // duplicated-DOF convention (node -1 is nn-2, node nn is 1; cell -1 is
-// nn-2, cell nn-1 is 0), which the tile extends to a period of nn - 1 (so
-// node 0 and node nn - 1 must hold the same value, as the solvers keep
-// them); other sides have phi = 0 outside and sigma = 0 outside.
+// nn-2, cell nn-1 is 0); other sides have phi = 0 outside and sigma = 0
+// outside. Both copies of a periodic dim's duplicated node (node 0 and node
+// nn - 1) are updated from their own values, as mg_nodal._jacobi does, and
+// a solve does leave them apart: by roundoff in a residual, and by more
+// where the right-hand side itself differs (a hydrostatic outflow strip
+// across a periodic dim). A tile's or a chunk's halo that crosses the seam
+// can stand for only one of the two copies, so past the first stage its
+// values would be those of another lattice: with a periodic dim, each
+// launch runs one stage and reads the stored values (more stages chain
+// launches); without one, up to kMaxStages stages share a launch.
 //
-// Design: one launch per call, reading phi, sigma and rhs (and upd, mask)
-// once. A block owns a (dim 1, dim 2) column tile of BY x BX nodes (32 x
+// Design: one launch per call (without a periodic dim), reading phi,
+// sigma and rhs (and upd, mask) once. A block owns a (dim 1, dim 2) column tile of BY x BX nodes (32 x
 // 32 up to 3 stages f32, else 16 x 32; 2D: 128 nodes of dim 1), one thread
 // a column, and marches along dim 0; the stages (the sweeps, then the
 // residual) run as a pipeline behind the march, stage s on plane i - s
@@ -376,15 +383,16 @@ int mg_nodal_jacobi_impl(const int* nn, int nsweeps, int want_resid, const void*
     total *= a.nn[d];
   }
   if (total >= (1LL << 31)) return (int)cudaErrorInvalidValue;  // 32-bit offsets
-  // up to kMaxStages stages a launch: more sweeps chain launches,
-  // ping-ponging out and tmp so the last sweep lands in out; the residual
-  // rides on the last sweep launch when it has room
+  // up to kMaxStages stages a launch (one with a periodic dim): more
+  // sweeps chain launches, ping-ponging out and tmp so the last sweep lands
+  // in out; the residual rides on the last sweep launch when it has room
   a.res = static_cast<T*>(res);
-  const int nl = ceil_div(nsweeps, kMaxStages);
+  const int ms = a.per[0] || a.per[1] || a.per[2] ? 1 : kMaxStages;
+  const int nl = ceil_div(nsweeps, ms);
   const T* src = static_cast<const T*>(phi);
   for (int l = 0; l < nl; ++l) {
-    a.nsweeps = nsweeps - l * kMaxStages < kMaxStages ? nsweeps - l * kMaxStages : kMaxStages;
-    a.want_resid = want_resid && l == nl - 1 && a.nsweeps < kMaxStages;
+    a.nsweeps = nsweeps - l * ms < ms ? nsweeps - l * ms : ms;
+    a.want_resid = want_resid && l == nl - 1 && a.nsweeps < ms;
     a.phi = src;
     a.out = static_cast<T*>((nl - 1 - l) % 2 == 0 ? out : tmp);
     cudaError_t err = launch_stages<T, DIM>(a, a.nsweeps + a.want_resid, stream);
@@ -419,8 +427,9 @@ extern "C" {
 
 // dtype: 0 float32, 1 float64. nn: dim ints (nodes per dim). nsweeps
 // sweeps from phi, the last landing in out, then mask * (rhs - L phi) into
-// res when want_resid; one launch for up to 4 stages (sweeps + residual),
-// more chain launches through tmp (null when at most one launch sweeps).
+// res when want_resid; one launch for up to 4 stages (sweeps + residual;
+// 1 with a periodic dim), more chain launches through tmp (null when at
+// most one launch sweeps).
 // upd and mask: null for omega * mask / diag formed here. coef: 2^dim
 // doubles -lambda_w / (2^dim V); kap: sum_d 1 / (3^(dim-1) dx_d^2); per,
 // dlo, dhi: dim ints, 1 on periodic dims / Dirichlet sides. Returns

@@ -4,26 +4,33 @@ iamr_tpu/ns/advance.py).
 NavierStokes::advance (Almgren-Bell-Colella-Howell-Welcome JCP 142, 1998):
 
   1. predict time-centred MAC velocities (Godunov PLM extrapolation with
-     forcing (visc + rho g - Gp)/rho; kernel K1 on the GPU)
-  2. MAC-project them
+     forcing (visc + rho g - Gp)/rho; kernel K1 on the GPU in 3D)
+  2. MAC-project them (with the thermal divergence source of do_temp runs)
   3. Godunov advection of every advected field in one multi-field pass
-     (kernel K2 on the GPU): velocity (convective), density (conservative),
-     tracers
-  4. scalar updates: rho, then tracers with CN diffusion
+     (kernel K2 on the GPU in 3D; the plain functions field by field in
+     2D): velocity (convective, or rho U conservative under do_mom_diff),
+     density (conservative), tracers, temperature
+  4. scalar updates: rho (clamped under do_denminmax), tracers and
+     temperature with CN diffusion
   5. velocity update u* = u^n - dt aofs + dt (f - Gp)/rho_half, then the
      CN viscous solve
-  6. nodal projection -> U^{n+1}, p^{n+1/2}, Gp
+  6. nodal projection -> U^{n+1}, p^{n+1/2}, Gp (outflow faces under
+     gravity hold the hydrostatic phi)
 
-Ported path: 3D, single level, PLM, with either the spectral (FFT) solvers
-of an all-periodic uniform-density run or the multigrid solvers (cell
-red-black Gauss-Seidel, FEM nodal Jacobi), to tolerance or for a fixed
-number of V-cycles. EB, RZ, LES, multi-box levels, temperature, BDS/PPM and
-use_forces_in_trans raise NotImplementedError. The step runs eagerly on the
-tensors' device; in fixed-cycle or spectral mode it reads nothing back to
-the host (tolerance mode reads one residual norm per V-cycle).
+Ported path: 2D and 3D, single level, PLM, periodic, walled, inflow and
+outflow sides, variable density, do_temp, do_mom_diff, do_denminmax and
+do_mac_proj, with either the spectral (FFT) solvers of an all-periodic
+uniform-density run or the multigrid solvers (cell red-black Gauss-Seidel,
+FEM nodal Jacobi), to tolerance or for a fixed number of V-cycles. EB, RZ,
+LES, multi-box levels, BDS/PPM and use_forces_in_trans raise
+NotImplementedError. The step runs eagerly on the tensors' device; in
+fixed-cycle or spectral mode it reads nothing back to the host (tolerance
+mode reads one residual norm per V-cycle).
 """
 
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -31,12 +38,12 @@ from iamr_tpu_torch.ns.bcprovider import PhysBCProvider
 from iamr_tpu_torch.ns.forcing_hit import HITForcing
 from iamr_tpu_torch.ns.particles import advect_with_umac
 from iamr_tpu_torch.ns.state import NSConfig, NSState
-from iamr_tpu_torch.ops.godunov import extrap_vel_to_faces
+from iamr_tpu_torch.ops.godunov import advect_field, extrap_vel_to_faces
 from iamr_tpu_torch.ops.godunov_kernels import godunov_plm_multi
 from iamr_tpu_torch.parallel.reduce import invariant_mean
 from iamr_tpu_torch.solvers import diffusion as diff
 from iamr_tpu_torch.solvers.mac import mac_project
-from iamr_tpu_torch.solvers.nodal_proj import level_project
+from iamr_tpu_torch.solvers.nodal_proj import hydrostatic_phi_bc, level_project
 
 
 def mu_faces(cfg: NSConfig, device):
@@ -129,24 +136,40 @@ def est_time_step(cfg: NSConfig, state: NSState, hit=None):
 
 
 def _check_supported(cfg: NSConfig):
-    if cfg.dim != 3:
-        raise NotImplementedError("2D is not ported")
     if cfg.geom.coord_sys != 0:
         raise NotImplementedError("RZ is not ported")
     if cfg.do_les:
         raise NotImplementedError("LES is not ported")
-    if cfg.do_temp:
-        raise NotImplementedError("ns.do_temp is not ported")
-    if cfg.do_mom_diff:
-        raise NotImplementedError("ns.do_mom_diff is not ported")
-    if cfg.do_denminmax:
-        raise NotImplementedError("ns.do_denminmax is not ported")
     if cfg.advection_scheme != "Godunov_PLM":
         raise NotImplementedError(f"{cfg.advection_scheme} is not ported (PLM is)")
     if cfg.use_forces_in_trans:
         raise NotImplementedError("godunov.use_forces_in_trans is not ported")
-    if not cfg.do_mac_proj:
-        raise NotImplementedError("ns.do_mac_proj=0 is not ported")
+
+
+def _thermal_divu(cfg: NSConfig, bcp, temp, rho):
+    """The thermal divergence source S = div(lambda grad T) / (rho T) of
+    do_temp runs with conduction (calc_divu), else None."""
+    if not (cfg.do_temp and cfg.temp_cond_coef > 0.0):
+        return None
+    tbc, tbv = bcp.temp_diff_bc()
+    lap = diff.visc_terms_component(
+        temp, beta_faces(cfg, cfg.temp_cond_coef, temp.device), cfg.geom.dx,
+        bcp._temp_rec, poisson_bc=tbc, poisson_bvals=tbv,
+    )
+    return lap / (rho * temp)
+
+
+def _scal_min_max(s_g, s_new):
+    """Clamp each new value to the min/max of its old 3^dim neighbourhood
+    (ConvectiveScalMinMax)."""
+    dim = s_new.ndim
+    ng = (s_g.shape[0] - s_new.shape[0]) // 2
+    lo = hi = None
+    for off in itertools.product((-1, 0, 1), repeat=dim):
+        v = s_g[tuple(slice(ng + off[d], ng + off[d] + s_new.shape[d]) for d in range(dim))]
+        lo = v if lo is None else torch.minimum(lo, v)
+        hi = v if hi is None else torch.maximum(hi, v)
+    return torch.clamp(s_new, lo, hi)
 
 
 def advance(
@@ -180,6 +203,7 @@ def advance(
     t_half = state.time + 0.5 * dt
     mf = mu_faces(cfg, dev)
     diff_cycles = None if fixed_mg_cycles is None else max(1, fixed_mg_cycles // 4)
+    mom_diff = cfg.do_mom_diff
 
     # --- 1. predict MAC velocities -------------------------------------
     if cfg.vel_visc_coef > 0.0 and cfg.be_cn_theta != 1.0:
@@ -204,40 +228,63 @@ def advance(
     umac = extrap_vel_to_faces(vel_g, force_g, dt, dx, cfg.geom.ncell, recs, bl, bh)
 
     # --- 2. MAC projection ---------------------------------------------
-    mac_bc, mac_bvals = bcp.mac_bc()
-    umac, mac_phi, _ = mac_project(
-        umac, rho, cfg.dom, dx, rtol=cfg.mac_tol, atol=cfg.mac_abs_tol,
-        fixed_cycles=fixed_mg_cycles, bc=mac_bc, bvals=mac_bvals,
-        spectral_beta0=(1.0 / invariant_mean(rho)) if spectral else None,
-    )
+    # the thermal source, centred in time with the previous step's dsdt
+    divu_src = _thermal_divu(cfg, bcp, state.temp, rho)
+    mac_divu = divu_src
+    if divu_src is not None and state.dsdt is not None:
+        mac_divu = divu_src + 0.5 * dt * state.dsdt
+    if cfg.do_mac_proj:
+        mac_bc, mac_bvals = bcp.mac_bc()
+        umac, _, _ = mac_project(
+            umac, rho, cfg.dom, dx, divu_src=mac_divu, rtol=cfg.mac_tol,
+            atol=cfg.mac_abs_tol, fixed_cycles=fixed_mg_cycles, bc=mac_bc, bvals=mac_bvals,
+            spectral_beta0=(1.0 / invariant_mean(rho)) if spectral else None,
+        )
+    # (ns.do_mac_proj = 0, a debugging switch: advect with the predicted
+    # MAC velocities)
     umac_g = bcp.grow_umac(umac)
 
-    # every advected field filled up front: u, v, w (forced, convective),
-    # rho (conservative), tracers
+    # every advected field filled up front, in the order vel x dim (forced;
+    # rho U, conservative, under do_mom_diff), rho (conservative), tracers,
+    # temperature (convective)
     rho_g = bcp.fill_scal(rho, 3, 0)
     trac_gs = [bcp.fill_scal(trac[t], 3, 1 + t) for t in range(cfg.ntrac)]
-    fields = [(vel_g[c], False, force_g[c]) for c in range(dim)]
+    fields = [(rho_g * vel_g[c] if mom_diff else vel_g[c], mom_diff, force_g[c])
+              for c in range(dim)]
     fields.append((rho_g, True, None))
     fields += [(trac_gs[t], bool(cfg.do_cons_trac), None) for t in range(cfg.ntrac)]
+    if cfg.do_temp:
+        fields.append((bcp.fill_temp(state.temp, 3), False, None))
 
-    # all fields in one multi-field pass (kernel K2 on CUDA tensors)
-    flist = [f for (_, _, f) in fields if f is not None]
-    rows, k = [], 0
-    for (_, _, f) in fields:
-        rows.append(k if f is not None else -1)
-        k += f is not None
-    adv = godunov_plm_multi(
-        [f[0] for f in fields], umac, umac_g, dt, dx, cfg.geom.ncell,
-        [f[1] for f in fields], flist, rows, [not f[1] for f in fields],
-        periodic=periodic,
-    )
+    if dim == 3:
+        # all fields in one multi-field pass (kernel K2 on CUDA tensors)
+        flist = [f for (_, _, f) in fields if f is not None]
+        rows, k = [], 0
+        for (_, _, f) in fields:
+            rows.append(k if f is not None else -1)
+            k += f is not None
+        adv = godunov_plm_multi(
+            [f[0] for f in fields], umac, umac_g, dt, dx, cfg.geom.ncell,
+            [f[1] for f in fields], flist, rows, [not f[1] for f in fields],
+            periodic=periodic,
+        )
+    else:
+        # 2D has no Godunov kernel (nor has the JAX package): the plain
+        # functions, one field at a time, on every device
+        adv = [
+            advect_field(s_g, umac, umac_g, dt, dx, cfg.geom.ncell, icons,
+                         s_cc=None if icons else s_g[3:-3, 3:-3], force_g=fg,
+                         periodic=periodic)
+            for (s_g, icons, fg) in fields
+        ]
 
-    # --- 3. velocity advection (convective form) --------------------------
+    # --- 3. velocity advection (convective, or rho U conservative) -------
     aofs_vel = torch.stack([adv[c][1] for c in range(dim)])
 
     # --- 4. scalar advection + updates ----------------------------------
-    aofs_rho = adv[dim][1]
-    rho_new = rho - dt * aofs_rho
+    rho_new = rho - dt * adv[dim][1]
+    if cfg.do_denminmax:
+        rho_new = _scal_min_max(rho_g, rho_new)
     rho_half = 0.5 * (rho + rho_new)
 
     trac_new = []
@@ -256,12 +303,35 @@ def advance(
         trac_new.append(s_star)
     trac_new = torch.stack(trac_new)
 
+    # --- 4b. temperature: advection + CN conduction, rho cp dT/dt =
+    # div(lambda grad T) with cp folded into temp_cond_coef -----------------
+    temp_new = state.temp
+    if cfg.do_temp:
+        temp_new = state.temp - dt * adv[dim + 1 + cfg.ntrac][1]
+        if cfg.temp_cond_coef > 0.0:
+            tbc, tbv = bcp.temp_diff_bc()
+            temp_new, _ = diff.diffuse_scalar(
+                temp_new, state.temp, rho_new, rho,
+                beta_faces(cfg, cfg.temp_cond_coef, dev), dt, dx, bcp._temp_rec,
+                theta=cfg.be_cn_theta, rtol=cfg.visc_tol, fixed_cycles=diff_cycles,
+                poisson_bc=tbc, poisson_bvals=tbv,
+                spectral=(invariant_mean(rho_new), cfg.temp_cond_coef) if spectral else None,
+            )
+
     # --- 5. velocity update + CN viscous solve ---------------------------
     tf_half = get_force(cfg, rho_half, t_half, hit)
-    vel_star = torch.stack([
-        vel[c] - dt * aofs_vel[c] + dt * (tf_half[c] - gradp[c]) / rho_half
-        for c in range(dim)
-    ])
+    if mom_diff:
+        # (rho U)* = rho^n U^n - dt div(rho U u_mac) + dt (F - Gp);
+        # U* = (rho U)* / rho^{n+1}
+        vel_star = torch.stack([
+            (rho * vel[c] - dt * aofs_vel[c] + dt * (tf_half[c] - gradp[c])) / rho_new
+            for c in range(dim)
+        ])
+    else:
+        vel_star = torch.stack([
+            vel[c] - dt * aofs_vel[c] + dt * (tf_half[c] - gradp[c]) / rho_half
+            for c in range(dim)
+        ])
     if cfg.vel_visc_coef > 0.0:
         # dt folded into alpha: (alpha - theta L) u = ..., alpha = rho_half / dt
         alpha = rho_half / dt
@@ -278,18 +348,27 @@ def advance(
         vel_star = torch.stack(comps)
 
     # --- 6. nodal projection ---------------------------------------------
+    divu_new = _thermal_divu(cfg, bcp, temp_new, rho_new)
     nodal_bc_, nodal_phi_bc = bcp.nodal()
+    if nodal_phi_bc is None and cfg.dom.has_outflow():
+        # outflow faces under gravity hold the hydrostatic phi
+        nodal_phi_bc = hydrostatic_phi_bc(cfg.geom, cfg.dom, rho_half, cfg.gravity)
     vel_new, p_new, gradp_new, _ = level_project(
         vel_star, rho_half, p, gradp, dt, cfg.dom, dx, rtol=cfg.proj_tol,
         atol=cfg.proj_abs_tol, fixed_cycles=fixed_mg_cycles, bc=nodal_bc_,
-        phi_bc=nodal_phi_bc,
+        phi_bc=nodal_phi_bc, divu_src=divu_new,
         spectral_sigma0=(1.0 / invariant_mean(rho_half)) if spectral else None,
     )
 
+    # dsdt for the next step's MAC source (calc_dsdt)
+    dsdt_new = None
+    if divu_new is not None and divu_src is not None:
+        dsdt_new = (divu_new - divu_src) / dt
+
     # --- next dt ----------------------------------------------------------
     new_state = NSState(
-        vel=vel_new, rho=rho_new, trac=trac_new, temp=state.temp, p=p_new,
-        gradp=gradp_new, time=state.time + dt, dt=dt, dsdt=None,
+        vel=vel_new, rho=rho_new, trac=trac_new, temp=temp_new, p=p_new,
+        gradp=gradp_new, time=state.time + dt, dt=dt, dsdt=dsdt_new,
     )
     dt_next = est_time_step(cfg, new_state, hit)
     dt_next = torch.minimum(dt_next, cfg.change_max * dt)

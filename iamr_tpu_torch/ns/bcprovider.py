@@ -2,8 +2,8 @@
 (counterpart of iamr_tpu/ns/bcprovider.py::PhysBCProvider).
 
 It separates how ghost cells are filled and which BCs the solvers see from
-the timestep logic. The coarse-fine provider of AMR levels and the
-temperature fills are not ported yet.
+the timestep logic. The coarse-fine provider of AMR levels is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from iamr_tpu_torch.core.bc import BCRec, SCALAR_BC, make_bcrec, velocity_bcrec
+from iamr_tpu_torch.core.bc import BCRec, SCALAR_BC, TEMP_BC, make_bcrec, velocity_bcrec
 from iamr_tpu_torch.core.fill import fill_ghost
 from iamr_tpu_torch.ops.godunov import grow_umac_transverse
 from iamr_tpu_torch.ops.mg import PoissonBC
@@ -33,6 +33,7 @@ class PhysBCProvider:
             for c in range(self.dim)
         ]
         self._scal_rec = make_bcrec(cfg.dom.phys_lo, cfg.dom.phys_hi, SCALAR_BC)
+        self._temp_rec = make_bcrec(cfg.dom.phys_lo, cfg.dom.phys_hi, TEMP_BC)
 
     # --- ghost fills ------------------------------------------------------
     def vel_bcvals(self, comp):
@@ -59,6 +60,22 @@ class PhysBCProvider:
 
     def fill_force(self, f):
         return torch.stack([fill_ghost(f[c], 1, self._vel_recs[c]) for c in range(self.dim)])
+
+    def temp_bcvals(self):
+        """ext_dir values of the temperature (bc_values after the tracers)."""
+        c = self.dim + 1 + self.cfg.ntrac
+        lo = tuple(self.cfg.dom.value(d, 0, c) for d in range(self.dim))
+        hi = tuple(self.cfg.dom.value(d, 1, c) for d in range(self.dim))
+        return lo, hi
+
+    def fill_temp(self, s, ng):
+        lo, hi = self.temp_bcvals()
+        return fill_ghost(s, ng, self._temp_rec, lo, hi)
+
+    def temp_diff_bc(self) -> Tuple[PoissonBC, Dict]:
+        rec = self._temp_rec
+        lo, hi = self.temp_bcvals()
+        return poisson_bc_from_bcrec(rec), bvals_from_scalar(rec, lo, hi, self.dim)
 
     # --- BC descriptors for the advection face pinning --------------------
     def vel_bcrec(self, comp) -> BCRec:

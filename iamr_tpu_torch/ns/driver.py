@@ -2,11 +2,12 @@
 iamr_tpu/ns/driver.py::initialize and ::run).
 
 initialize: initial conditions, the initial velocity projection (nodal
-multigrid, init_vel_iter times), the first dt (init_dt, or init_shrink times
-the CFL estimate) and init_iter pressure iterations. The hydrostatic initial
-pressure of gravity runs, EB and RZ raise NotImplementedError. Plotfiles,
-checkpoints (and with them restarts), ns.debug checks and particle output
-files are not ported.
+multigrid, init_vel_iter times), the hydrostatic initial pressure of gravity
+runs, the first dt (init_dt, or init_shrink times the CFL estimate) and
+init_iter pressure iterations. run: the time loop, with the per-step
+self-checks of ns.debug (ns/checks.py). EB and RZ raise
+NotImplementedError. Plotfiles, checkpoints (and with them restarts) and
+particle output files are not ported.
 """
 
 from __future__ import annotations
@@ -22,9 +23,10 @@ from iamr_tpu_torch.ns.advance import (
     make_step,
     make_step_with_particles,
 )
+from iamr_tpu_torch.ns.checks import run_debug_checks
 from iamr_tpu_torch.ns.probs import init_state
 from iamr_tpu_torch.ns.state import NSConfig, NSState
-from iamr_tpu_torch.solvers.nodal_proj import initial_velocity_project
+from iamr_tpu_torch.solvers.nodal_proj import initial_pressure_project, initial_velocity_project
 from iamr_tpu_torch.solvers.spectral import spectral_eligible
 
 
@@ -36,13 +38,14 @@ def initialize(cfg: NSConfig, fixed_mg_cycles=None, device=None,
     Gp). init_iters overrides cfg.init_iter. The solves are multigrid, to
     the config's tolerances or with fixed_mg_cycles V-cycles, as in the JAX
     package."""
-    if abs(cfg.gravity) > 1e-4:
-        raise NotImplementedError("the hydrostatic initial pressure (gravity) is not ported")
     if cfg.geom.coord_sys != 0:
         raise NotImplementedError("RZ is not ported")
     device = torch.device("cuda", 0) if device is None else torch.device(device)
     n_init_iter = cfg.init_iter if init_iters is None else init_iters
     state = init_state(cfg, device)
+    if cfg.do_temp and cfg.temp_cond_coef > 0.0:
+        # d(divu)/dt starts at zero
+        state = state._replace(dsdt=torch.zeros_like(state.rho))
     if cfg.do_init_proj and cfg.init_vel_iter > 0:
         # unit sigma unless proj.rho_wgt_vel_proj (the reference's default)
         sig = state.rho if cfg.rho_wgt_vel_proj else torch.ones_like(state.rho)
@@ -53,6 +56,12 @@ def initialize(cfg: NSConfig, fixed_mg_cycles=None, device=None,
                 fixed_cycles=fixed_mg_cycles,
             )
         state = state._replace(vel=vel)
+    if abs(cfg.gravity) > 1e-4:
+        p0, gp0 = initial_pressure_project(
+            state.rho, cfg.gravity, cfg.dom, cfg.geom.dx, geom=cfg.geom, rtol=cfg.proj_tol,
+            atol=cfg.proj_abs_tol, fixed_cycles=fixed_mg_cycles,
+        )
+        state = state._replace(p=p0, gradp=gp0)
     if cfg.init_dt > 0.0:
         dt0 = torch.full((), cfg.init_dt, dtype=cfg.tdtype, device=device)
     else:
@@ -88,14 +97,18 @@ def run(
     spectral solvers run where spectral_eligible allows (ns.fft_solve),
     the multigrid otherwise. Returns the final state, or (state, particles)
     when particles are given (they advect with each step's MAC
-    velocities)."""
-    if cfg.debug:
-        raise NotImplementedError("ns.debug checks are not ported")
+    velocities). With ns.debug (and no particles) each step's state and
+    MAC velocities go through ns/checks.py::run_debug_checks."""
     if state is None:
         state = initialize(cfg, fixed_mg_cycles, device)
     sp = spectral_eligible(cfg, state.rho)
+    debug = cfg.debug and particles is None
     if particles is not None:
         pstep_fn = make_step_with_particles(cfg, fixed_mg_cycles, spectral=sp)
+    elif debug:
+        hit = make_hit_forcing(cfg)
+        step_fn = lambda s: advance(s, cfg, fixed_mg_cycles, hit=hit, return_umac=True,
+                                    spectral=sp)
     else:
         step_fn = make_step(cfg, fixed_mg_cycles, spectral=sp)
 
@@ -112,6 +125,9 @@ def run(
         prev = state
         if particles is not None:
             state, particles = pstep_fn(state, particles)
+        elif debug:
+            state, umac = step_fn(state)
+            run_debug_checks(cfg, state, umac, step=step + 1)
         else:
             state = step_fn(state)
         step += 1

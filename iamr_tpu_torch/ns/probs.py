@@ -1,9 +1,20 @@
 """Problem initial conditions (counterpart of iamr_tpu/ns/probs.py).
 
-Ported: probtype 11 (Taylor-Green, reference prob_init.cpp:509-560) and
-probtype 100 (forced HIT, Tutorials/HIT/prob_init.cpp:43-86, the synthetic
-solenoidal field). Fields are built in numpy float64 exactly as the JAX
-package builds them, then placed on `device` in cfg's dtype.
+Ported, in 2D and 3D (reference Source/prob/prob_init.cpp):
+  1    rest, rho = 1 (the lid-driven cavity and channels are driven by BCs)
+  2/6  falling / rising (hot) bubble
+  3    density-jump blob in a background flow
+  4    constant velocity and density, tracer blob
+  5    double shear layer
+  7    Euler vortex tube
+  8    convected vortex
+  10   Rayleigh-Taylor
+  11   Taylor-Green
+  100  forced HIT (Tutorials/HIT/prob_init.cpp:43-86, the synthetic
+       solenoidal field)
+Fields are built in numpy float64 exactly as the JAX package builds them,
+then placed on `device` in cfg's dtype. prob.ic_file, the plugin registry
+of user problems and ns.velocity_plotfile raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -13,6 +24,10 @@ import torch
 
 from iamr_tpu_torch.ns.forcing_hit import init_hit_velocity
 from iamr_tpu_torch.ns.state import NSConfig, NSState
+
+
+def _blob_r2(X, P, dim):
+    return sum((X[d] - P(f"blob_{'xyz'[d]}", 0.0)) ** 2 for d in range(dim))
 
 
 def init_state(cfg: NSConfig, device) -> NSState:
@@ -28,7 +43,85 @@ def init_state(cfg: NSConfig, device) -> NSState:
     two_pi = 2.0 * np.pi
     pt = cfg.probtype
 
-    if pt == 11:
+    if pt == 1:
+        pass
+    elif pt == 4:
+        for d, nm in enumerate(["velocity_x", "velocity_y", "velocity_z"][:dim]):
+            vel[d] = P(nm, 0.0)
+        rho[...] = P("density_ic", 1.0)
+        trac[0] = np.where(np.sqrt(_blob_r2(X, P, dim)) < P("blob_radius", 0.1), 1.0, 0.0)
+    elif pt == 3:
+        for d in range(dim):
+            vel[d] = P(f"velocity_{'xyz'[d]}", 0.0)
+        inside = np.sqrt(_blob_r2(X, P, dim)) < P("blob_radius", 0.1)
+        rho[...] = np.where(inside, P("density_ic", 2.0), 1.0)
+        trac[0] = np.where(inside, 1.0, 0.0)
+    elif pt in (2, 6):
+        for d in range(dim):
+            vel[d] = P(f"velocity_{'xyz'[d]}", 0.0)
+        r = np.sqrt(_blob_r2(X, P, dim))
+        radius = P("blob_radius", 0.1)
+        denfact = P("density_ic", 2.0)
+        if pt == 6:
+            # hot (less dense) rising bubble, T = 1/rho
+            w = P("interface_width", 1.0)
+            rho[...] = 1.0 / denfact + 0.5 * (1.0 - 1.0 / denfact) * (
+                1.0 + np.tanh(40.0 * (r - radius) / w)
+            )
+            temp[...] = 1.0 / rho
+        else:
+            inside = 0.5 * (1.0 - np.tanh(30.0 * (r - radius) / P("interface_width", 1.0)))
+            rho[...] = 1.0 + (denfact - 1.0) * inside
+        trac[0] = np.where(r < radius, 1.0, 0.0)
+    elif pt == 5:
+        rho[...] = P("density_ic", 1.0)
+        pert = P("pertamp", 0.05)
+        if int(P("direction", 0)) == 0:
+            vel[0] = np.tanh(30.0 * (0.25 - np.abs(X[1] - 0.5)))
+            vel[1] = pert * np.sin(two_pi * X[0])
+        else:
+            vel[1] = np.tanh(30.0 * (0.25 - np.abs(X[0] - 0.5)))
+            vel[0] = pert * np.sin(two_pi * X[1])
+        trac[0] = 0.5 * (1.0 + np.tanh(30.0 * (0.25 - np.abs(X[1] - 0.5))))
+    elif pt == 7:
+        vf = P("velocity_factor", 1.0)
+        a, b = P("a", 1.0), P("b", 1.0)
+        x, y = X[0], X[1]
+        vel[0] = vf * np.sin(two_pi * a * x) * np.cos(two_pi * b * y)
+        vel[1] = -vf * np.cos(two_pi * a * x) * np.sin(two_pi * b * y)
+        trac[0] = 0.5 * (1.0 + np.cos(two_pi * x))
+    elif pt == 8:
+        # Gaussian vortex at (xvort, yvort), radius rvort, strength
+        # forcevort, on a mean flow along meanFlowDir (+-1 x, +-2 y, +-3 both)
+        dxv = X[0] - P("xvort", 0.5)
+        dyv = X[1] - P("yvort", 0.5)
+        d2 = dxv * dxv + dyv * dyv
+        r2 = P("rvort", 0.07) ** 2
+        fv = P("forcevort", 6.0)
+        mdir = int(P("meanFlowDir", 1))
+        mmag = P("meanFlowMag", 0.0)
+        sgn = -1.0 if mdir < 0 else 1.0
+        vel[0] = -fv * dyv / r2 * np.exp(-d2 / r2 / 2.0) + (
+            sgn * mmag if abs(mdir) in (1, 3) else 0.0)
+        vel[1] = fv * dxv / r2 * np.exp(-d2 / r2 / 2.0) + (
+            sgn * mmag if abs(mdir) in (2, 3) else 0.0)
+        rho[...] = P("density_ic", 1.0)
+        trac[0] = np.exp(-d2 / r2 / 2.0)
+    elif pt == 10:
+        # heavy over light, interface perturbed by a cosine (2D) or a
+        # product of cosines (3D), absolute interface_width
+        rho_1, rho_2 = P("rho_1", 1.0), P("rho_2", 2.0)
+        tra_1, tra_2 = P("tra_1", 0.0), P("tra_2", 1.0)
+        pertamp = P("perturbation_amplitude", 1.0)
+        ymid = 0.5 * (geom.prob_hi[dim - 1] + geom.prob_lo[dim - 1])
+        Lx = geom.prob_hi[0] - geom.prob_lo[0]
+        pert = pertamp * np.cos(two_pi * X[0] / Lx)
+        if dim == 3:
+            pert = pert * np.cos(two_pi * X[1] / (geom.prob_hi[1] - geom.prob_lo[1]))
+        frac = 0.5 * (1.0 + np.tanh((X[dim - 1] - (ymid + pert)) / P("interface_width", 0.01)))
+        rho[...] = rho_1 + (rho_2 - rho_1) * frac
+        trac[0] = tra_1 + (tra_2 - tra_1) * frac
+    elif pt == 11:
         vf = P("velocity_factor", 1.0)
         a, b, c = P("a", 1.0), P("b", 1.0), P("c", 1.0)
         x, y = X[0], X[1]
@@ -54,7 +147,9 @@ def init_state(cfg: NSConfig, device) -> NSState:
         )
         rho[...] = P("density", 1.0)
     else:
-        raise NotImplementedError(f"probtype {pt} is not ported (11 and 100 are)")
+        raise NotImplementedError(
+            f"probtype {pt} is not ported (1-8, 10, 11 and 100 are; user problems "
+            "of the plugin registry are not)")
     if cfg.velocity_plotfile:
         raise NotImplementedError("ns.velocity_plotfile is not ported")
 

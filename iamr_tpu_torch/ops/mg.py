@@ -83,8 +83,10 @@ def _boundary_lift(shape, bc: PoissonBC, bvals, dtype, device):
         kind = bc.lo[d] if side == 0 else bc.hi[d]
         idx = [slice(1, -1)] * dim
         idx[d] = slice(0, 1) if side == 0 else slice(-1, None)
-        v = torch.as_tensor(val, dtype=dtype, device=device)
-        if v.ndim == dim - 1:
+        # a number stays a Python scalar: making it a tensor on the card would
+        # copy it from the host and wait for the stream
+        v = val
+        if isinstance(v, torch.Tensor) and v.ndim == dim - 1:
             v = v.unsqueeze(d)
         contrib = (8.0 / 3.0) * v if kind == DIRICHLET else v
         g[tuple(idx)] += contrib

@@ -20,9 +20,11 @@ csrc/mg_nodal.cu; f32 or f64, 2D or 3D, any size). Both kernels form the
 diagonal (and the nodal Dirichlet mask) themselves, so neither takes it;
 cell_diag and nodal_diag_mask write their formulas out in PyTorch, and
 nodal_coefs gives the nodal kernel its factored element matrix. Each
-wrapper adds one to LAUNCHES per call that launches: one CUDA launch runs
-all of a V-cycle call's sweeps and its residual (up to CELL_STAGES /
-NODAL_STAGES stages; longer calls chain launches).
+wrapper adds one to LAUNCHES per call that launches, and to GRIDS the CUDA
+launches the call makes: one runs all of a V-cycle call's sweeps and its
+residual (up to CELL_STAGES / NODAL_STAGES stages; longer calls chain
+launches), except that a nodal call with a periodic dim makes one a stage
+(csrc/mg_nodal.cu says why).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from iamr_tpu_torch.ops import mg, mg_nodal
 from iamr_tpu_torch.ops.stencil import checkerboard
 
 LAUNCHES = {"mg_cell_gsrb": 0, "mg_nodal_jacobi": 0}
+GRIDS = {"mg_cell_gsrb": 0, "mg_nodal_jacobi": 0}
 # stages (colour passes or sweeps, plus the residual) of one launch, as
 # compiled into csrc/mg_cell.cu and csrc/mg_nodal.cu (kMaxStages)
 CELL_STAGES = 5
@@ -45,7 +48,22 @@ NODAL_STAGES = 4
 
 def reset_launches():
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = GRIDS[k] = 0
+
+
+def grids(stages, cap, want_resid):
+    """CUDA launches of a call of `stages` passes or sweeps plus the
+    residual when want_resid, at most `cap` stages a launch: the residual
+    rides on the last sweep launch when it has room (the chaining of
+    csrc/mg_cell.cu and csrc/mg_nodal.cu)."""
+    nl = -(-stages // cap)
+    rides = nl > 0 and stages - (nl - 1) * cap < cap
+    return nl + int(bool(want_resid) and not rides)
+
+
+def nodal_cap(bc_lo):
+    """Stages of one nodal launch: one with a periodic dim."""
+    return 1 if mg_nodal.N_PERIODIC in tuple(bc_lo) else NODAL_STAGES
 
 
 def _cell_passes(nsweeps, colour):
@@ -165,6 +183,7 @@ def cell_smooth(phi, rhs, alpha, beta, a: float, b, dx, bc_lo, bc_hi,
     )
     native.check_rc(rc, "mg_cell_gsrb")
     LAUNCHES["mg_cell_gsrb"] += 1
+    GRIDS["mg_cell_gsrb"] += grids(len(passes), CELL_STAGES, want_resid)
     return out, res
 
 
@@ -282,9 +301,9 @@ def nodal_jacobi(phi, sigma, rhs, dx, bc_lo, bc_hi, nsweeps: int, want_resid: bo
     mask and diag formed from sigma and the BC kinds, or with upd and mask
     given (K8) phi + upd * (rhs - L phi); the residual is mask * (rhs - L
     phi). Periodic dims (bc_lo kind N_PERIODIC) wrap with the
-    duplicated-DOF convention; other sides have zero ghosts and zero sigma
-    outside. phi itself is not modified. The arguments are checked on
-    either device."""
+    duplicated-DOF convention, each copy updated from its own values;
+    other sides have zero ghosts and zero sigma outside. phi itself is not
+    modified. The arguments are checked on either device."""
     dim, dtype, dev = phi.ndim, phi.dtype, phi.device
     nn = tuple(phi.shape)
     if dev.type not in ("cuda", "cpu") or dim not in (2, 3) or dtype not in native.DTYPES:
@@ -304,7 +323,8 @@ def nodal_jacobi(phi, sigma, rhs, dx, bc_lo, bc_hi, nsweeps: int, want_resid: bo
     if not nsweeps and not want_resid:
         return phi, None
     out = torch.empty_like(phi) if nsweeps else phi
-    tmp = torch.empty_like(phi) if nsweeps > NODAL_STAGES else None
+    cap = nodal_cap(bc_lo)
+    tmp = torch.empty_like(phi) if nsweeps > cap else None
     res = torch.empty_like(phi) if want_resid else None
     kinds = lambda side, kind: _ints([int(side[d] == kind) for d in range(dim)])
     kap = sum(1.0 / (3 ** (dim - 1) * dx[d] ** 2) for d in range(dim))
@@ -318,4 +338,5 @@ def nodal_jacobi(phi, sigma, rhs, dx, bc_lo, bc_hi, nsweeps: int, want_resid: bo
     )
     native.check_rc(rc, "mg_nodal_jacobi")
     LAUNCHES["mg_nodal_jacobi"] += 1
+    GRIDS["mg_nodal_jacobi"] += grids(nsweeps, cap, want_resid)
     return out, res

@@ -7,9 +7,10 @@
 
 The solve is the all-periodic uniform-density FFT solve (spectral_sigma0)
 or the nodal multigrid (ops/mg_nodal.py), warm-started from p^{n-1/2}.
-initial_velocity_project is the initial projection of driver.initialize.
-The EB, RZ and multi-box projections and initial_pressure_project (the
-hydrostatic start of gravity runs) are not ported.
+initial_velocity_project is the initial projection of driver.initialize,
+initial_pressure_project its hydrostatic start of gravity runs, and
+hydrostatic_phi_bc the Dirichlet phi of outflow faces under gravity. The
+EB, RZ and multi-box projections are not ported.
 """
 
 from __future__ import annotations
@@ -126,3 +127,77 @@ def initial_velocity_project(
                                fixed_cycles=fixed_cycles)
     gphi = grad_node_to_cell(phi, dx)
     return torch.stack([u[d] - sigma * gphi[d] for d in range(dim)]), (res, it)
+
+
+def initial_pressure_project(
+    rho,
+    gravity: float,
+    dom: DomainBC,
+    dx: Sequence[float],
+    geom=None,
+    rtol: float = 1e-12,
+    atol: float = 1e-16,
+    fixed_cycles: Optional[int] = None,
+):
+    """Hydrostatic initial pressure of gravity runs
+    (initialPressureProject): project the body-force field (0, ..., 0, g)
+    with sigma = 1/rho; phi is the hydrostatic pressure and Gp its nodal
+    gradient. Given geom, outflow faces take hydrostatic_phi_bc's values.
+    Returns (p, gradp)."""
+    dim = rho.ndim
+    bc = nodal_bc(dom)
+    g = torch.full_like(rho, gravity)
+    u = tuple(g if d == dim - 1 else torch.zeros_like(rho) for d in range(dim))
+    phi_bc = hydrostatic_phi_bc(geom, dom, rho, gravity) if geom is not None else None
+    phi, _, _ = nodal_solve(div_cell_to_node(u, dx, bc), 1.0 / rho, dx, bc, rtol=rtol,
+                            atol=atol, fixed_cycles=fixed_cycles, phi_bc=phi_bc)
+    return phi, torch.stack(list(grad_node_to_cell(phi, dx)))
+
+
+def hydrostatic_phi_bc(geom, dom: DomainBC, rho, gravity: float):
+    """Dirichlet phi of outflow faces under gravity (set_outflow_bcs with
+    computeRhoG): 0 on a top outflow face; on a lateral one, phi integrated
+    down from the top, each cell row adding -gravity rhoExt dh with rhoExt =
+    (3 rho_1 - rho_2)/2 extrapolated to the face. A bottom outflow face
+    with gravity raises, as the reference aborts there. Returns a node
+    array (zero off the outflow faces), or None when no face needs values."""
+    dim = rho.ndim
+    g = float(gravity)
+    if abs(g) < 1e-4:
+        return None
+    zdim = dim - 1
+    out = None
+    for d in range(dim):
+        for side in (0, 1):
+            if (dom.phys_lo[d] if side == 0 else dom.phys_hi[d]) != PhysBC.Outflow:
+                continue
+            if d == zdim:
+                if side == 1:
+                    continue  # top outflow: phi = 0, the default
+                raise NotImplementedError(
+                    "outflow at the bottom with gravity != 0 (the reference aborts "
+                    "here too)")
+            if out is None:
+                out = torch.zeros(tuple(s + 1 for s in rho.shape), dtype=rho.dtype,
+                                  device=rho.device)
+            m = rho.shape[d]
+            rho1 = rho.narrow(d, 0 if side == 0 else m - 1, 1)
+            rho2 = rho.narrow(d, 1 if side == 0 else m - 2, 1)
+            w = -g * geom.dx[zdim] * (0.5 * (3.0 * rho1 - rho2)).squeeze(d)
+            # the vertical axis once d is squeezed out
+            zax = zdim - (1 if d < zdim else 0)
+            # each row's phi: the rows' -g rhoExt dh summed from the top; the
+            # top node carries 0
+            rows = torch.flip(torch.cumsum(torch.flip(w, (zax,)), dim=zax), (zax,))
+            nodes = torch.cat([rows, torch.zeros_like(rows.narrow(zax, 0, 1))], dim=zax)
+            # the other transverse dims: cells to nodes by averaging
+            for e in range(dim):
+                ax = e - (1 if d < e else 0)
+                if e == d or ax == zax:
+                    continue
+                k = nodes.shape[ax]
+                inner = 0.5 * (nodes.narrow(ax, 0, k - 1) + nodes.narrow(ax, 1, k - 1))
+                nodes = torch.cat([nodes.narrow(ax, 0, 1), inner, nodes.narrow(ax, k - 1, 1)],
+                                  dim=ax)
+            out.narrow(d, 0 if side == 0 else m, 1).copy_(nodes.unsqueeze(d))
+    return out

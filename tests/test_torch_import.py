@@ -3,8 +3,10 @@ iamr_tpu_torch module, and chip_smoke.py, load in a fresh interpreter with
 no 'jax', 'jax.*', 'iamr_tpu' or 'iamr_tpu.*' module in sys.modules (the GPU
 machine has no JAX installed; the port keeps its own copies of the plain
 Python modules it needs). Those copies (config.parmparse, core.geometry,
-core.bc) parse and build examples/inputs.3d.hit_forced as the JAX package's
-do. chip_smoke.py also refuses to run without a CUDA device."""
+core.bc) parse and build examples/inputs.3d.hit_forced, the 2D lid-driven
+cavity and walled, inflow, outflow and thermal inputs as the JAX package's
+do, down to the velocity, scalar and temperature BC records. chip_smoke.py
+also refuses to run without a CUDA device."""
 
 import dataclasses
 import os
@@ -33,7 +35,8 @@ import iamr_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(iamr_tpu_torch.__path__, "iamr_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 25, names
+assert len(names) >= 26, names
+assert "iamr_tpu_torch.ns.checks" in names, names
 """ + FOREIGN
 
 IMPORT_SMOKE = """
@@ -87,3 +90,40 @@ def test_port_copies_build_the_same_config():
     jr = jbc.make_bcrec(jcfg.dom.phys_lo, jcfg.dom.phys_hi, jbc.SCALAR_BC)
     tr = tbc.make_bcrec(tcfg.dom.phys_lo, tcfg.dom.phys_hi, tbc.SCALAR_BC)
     assert (jr.lo, jr.hi) == (tr.lo, tr.hi)
+
+
+WALLED = """
+amr.n_cell = 8 8 16
+geometry.prob_lo = 0. 0. 0.
+geometry.prob_hi = 0.5 0.5 1.0
+geometry.is_periodic = 1 0 0
+ns.lo_bc = 0 1 5
+ns.hi_bc = 0 2 4
+ns.do_temp = 1
+ns.scal_diff_coefs = 1e-4 2e-4
+ylo.velocity = 0.0 1.0 0.0
+ylo.temp = 2.0
+zhi.type = pressure_outflow
+"""
+
+
+@pytest.mark.parametrize("source", ["inputs.2d.lid_driven_cavity", "walled"])
+def test_port_copies_build_the_same_walled_config(source):
+    if source == "walled":
+        text = WALLED
+    else:
+        with open(os.path.join(ROOT, "examples", source)) as f:
+            text = f.read()
+    jcfg = jstate.config_from_inputs(JParmParse.from_string(text))
+    tcfg = tstate.config_from_inputs(TParmParse.from_string(text), device="cpu")
+    assert dataclasses.asdict(jcfg.geom) == dataclasses.asdict(tcfg.geom)
+    assert dataclasses.asdict(jcfg.dom) == dataclasses.asdict(tcfg.dom)
+    assert (jcfg.ntrac, jcfg.do_temp, jcfg.dim) == (tcfg.ntrac, tcfg.do_temp, tcfg.dim)
+    for comp in range(jcfg.dim):
+        jr = jbc.velocity_bcrec(jcfg.dom.phys_lo, jcfg.dom.phys_hi, comp)
+        tr = tbc.velocity_bcrec(tcfg.dom.phys_lo, tcfg.dom.phys_hi, comp)
+        assert (jr.lo, jr.hi) == (tr.lo, tr.hi)
+    for jt, tt in ((jbc.SCALAR_BC, tbc.SCALAR_BC), (jbc.TEMP_BC, tbc.TEMP_BC)):
+        jr = jbc.make_bcrec(jcfg.dom.phys_lo, jcfg.dom.phys_hi, jt)
+        tr = tbc.make_bcrec(tcfg.dom.phys_lo, tcfg.dom.phys_hi, tt)
+        assert (jr.lo, jr.hi) == (tr.lo, tr.hi)

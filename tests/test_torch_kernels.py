@@ -14,6 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+# the field lists and the padding of chip_smoke.py's phases 3 and 4, which
+# hold the kernels to the same contracts on the card
+from chip_smoke import (MIXED, MOM_DIFF_FLAGS, NINE_FLAGS, SIX_FLAGS, SLICE_FLAGS, TEMP_FLAGS,
+                        pad, per3)
 from iamr_tpu_torch.ops import godunov as god
 from iamr_tpu_torch.ops import godunov_kernels as gk
 
@@ -28,42 +32,29 @@ def cuda():
     return torch.device("cuda")
 
 
-def _pad(a, ng, periodic):
-    return np.pad(a, ng, mode="wrap" if periodic else "edge")
-
-
 def extrap_inputs(n, periodic, seed=0):
     rng = np.random.RandomState(seed)
     vel = 0.4 * rng.randn(3, *n)
     force = rng.randn(3, *n)
-    vel_g = np.stack([_pad(vel[c], 3, periodic) for c in range(3)])
-    force_g = np.stack([_pad(force[c], 1, periodic) for c in range(3)])
+    vel_g = np.stack([pad(vel[c], 3, periodic) for c in range(3)])
+    force_g = np.stack([pad(force[c], 1, periodic) for c in range(3)])
     return vel_g, force_g
 
 
 def advect_inputs(n, periodic, nc, seed=0):
     rng = np.random.RandomState(seed)
-    fields = [_pad(rng.rand(*n), 3, periodic) for _ in range(nc)]
+    fields = [pad(rng.rand(*n), 3, periodic) for _ in range(nc)]
     umac = []
     for d in range(3):
         shp = [nn + (1 if e == d else 0) for e, nn in enumerate(n)]
         u = 0.3 * rng.randn(*shp)
-        if periodic:
+        if per3(periodic)[d]:
             idx_hi = tuple(slice(None) if e != d else -1 for e in range(3))
             idx_lo = tuple(slice(None) if e != d else 0 for e in range(3))
             u[idx_hi] = u[idx_lo]
         umac.append(u)
-    forces = [_pad(rng.randn(*n), 1, periodic) for _ in range(3)]
+    forces = [pad(rng.randn(*n), 1, periodic) for _ in range(3)]
     return fields, umac, forces
-
-
-# the slice's advected fields: u, v, w forced convective; rho conservative;
-# one passive tracer convective
-SLICE_FLAGS = dict(
-    iconservs=[False, False, False, True, False],
-    force_rows=[0, 1, 2, -1, -1],
-    convs=[True, True, True, False, True],
-)
 
 
 def run_extrap(device, dtype, n, periodic, force, seed=0):
@@ -83,7 +74,7 @@ def run_advect(device, dtype, n, periodic, flags, seed=0):
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     s_gs = [t(f) for f in fields]
     um = tuple(t(u) for u in umac)
-    per = (periodic,) * 3
+    per = per3(periodic)
     ug = god.grow_umac_transverse(um, per)
     fgs = [t(f) for f in forces]
     dt = torch.tensor(0.004, dtype=dtype, device=device)
@@ -111,7 +102,7 @@ def assert_f64(got, ref):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [(16, 24, 40), (32, 32, 32)])
-@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("periodic", [True, False, MIXED])
 @pytest.mark.parametrize("force", [True, False])
 def test_extrap_kernel_f32(cuda, n, periodic, force):
     assert_f32(*run_extrap(cuda, torch.float32, n, periodic, force))
@@ -124,7 +115,7 @@ def test_extrap_kernel_f64(cuda, periodic):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("periodic", [True, False, MIXED])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_godunov_multi_kernel(cuda, periodic, dtype):
     got, ref = run_advect(cuda, dtype, (16, 24, 40), periodic, SLICE_FLAGS)
@@ -144,12 +135,6 @@ def test_godunov_single_field_kernel(cuda, iconserv, force):
 # boxes no tile divides: ragged in dims 1 and 2, odd, below one tile, and a
 # dim 0 shorter than a march segment
 RAGGED = [(80, 96, 112), (40, 24, 21), (8, 8, 8), (5, 40, 70)]
-# six fields (ntrac = 2) with mixed force rows
-SIX_FLAGS = dict(
-    iconservs=[False, False, False, True, False, True],
-    force_rows=[0, 1, 2, -1, 1, -1],
-    convs=[True, True, True, False, True, False],
-)
 ONE_CONSERVATIVE = dict(iconservs=[True], force_rows=[-1], convs=[False])
 
 
@@ -159,7 +144,7 @@ def assert_dtype(dtype, got, ref):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", RAGGED)
-@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("periodic", [True, False, MIXED])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_extrap_kernel_ragged(cuda, n, periodic, dtype):
     for force in (True, False):
@@ -168,7 +153,7 @@ def test_extrap_kernel_ragged(cuda, n, periodic, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", RAGGED)
-@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("periodic", [True, False, MIXED])
 @pytest.mark.parametrize("flags", [ONE_CONSERVATIVE, SLICE_FLAGS, SIX_FLAGS],
                          ids=["nc1", "nc5", "nc6"])
 def test_godunov_multi_kernel_ragged(cuda, n, periodic, flags):
@@ -186,12 +171,13 @@ def test_kernels_bitwise_on_a_ragged_box(cuda):
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
-# nine fields: more than one launch holds (8), so the call chains two
-NINE_FLAGS = dict(
-    iconservs=[False, False, False, True, False, True, False, True, False],
-    force_rows=[0, 1, 2, -1, 1, -1, 2, 0, -1],
-    convs=[True, True, True, False, True, False, True, False, False],
-)
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [TEMP_FLAGS, MOM_DIFF_FLAGS], ids=["temp", "mom_diff"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_godunov_multi_kernel_walled_fields(cuda, flags, dtype):
+    """Bit for bit on Rayleigh-Taylor's mixed periodicity."""
+    got, ref = run_advect(cuda, dtype, (24, 16, 40), MIXED, flags, seed=9)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
 @pytest.mark.cuda
@@ -281,7 +267,7 @@ def test_extrap_window_equals_crop(tile, periodic, force):
 def _advect_window(lo, w, periodic, iconserv, force, narrow=None):
     fields, umac, forces = advect_inputs(BOX, periodic, 1, seed=5)
     t = torch.as_tensor
-    per = (periodic,) * 3
+    per = per3(periodic)
     s_g, um, fg = t(fields[0]), tuple(t(u) for u in umac), t(forces[0])
     ug = god.grow_umac_transverse(um, per)
     dt, dx = torch.tensor(0.004, dtype=torch.float64), _dx(BOX)
@@ -350,14 +336,14 @@ def test_advect_narrower_window_differs(iconserv, narrow):
     assert not (all(torch.equal(a, b) for a, b in zip(fl, bfl)) and torch.equal(ao, bao))
 
 
-@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("periodic", [True, False, MIXED])
 def test_umac_g_real_part_is_umac(periodic):
     """The K2 kernel reads the face velocities from umac_g alone, the plain
     version takes the fluxes' from umac: they agree because the real part of
     grow_umac_transverse(umac) is umac, bit for bit."""
     _, umac, _ = advect_inputs(BOX, periodic, 1, seed=8)
     um = tuple(torch.as_tensor(u) for u in umac)
-    ug = god.grow_umac_transverse(um, (periodic,) * 3)
+    ug = god.grow_umac_transverse(um, per3(periodic))
     for d in range(3):
         real = tuple(slice(None) if e == d else slice(1, -1) for e in range(3))
         assert torch.equal(ug[d][real], um[d])

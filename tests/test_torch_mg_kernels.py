@@ -9,7 +9,9 @@ caller-given upd and mask), 2D and 3D, every BC kind; and the shapes that
 exercise the kernels' tiles: the smallest smoothed levels of the 256^3 path
 (16^3 cells, 17^3 nodes), extents no tile divides (80x96x112 and 2D), an
 odd periodic extent (40x24x21), nsweeps 0 to 4 (chained launches past a
-launch's stages), and one CUDA launch per call. The kernels sum in another
+launch's stages), with the periodic copies of the duplicated nodes equal
+and apart (each copy is updated from its own values), and one CUDA launch
+per call (a stage a launch for a nodal call with a periodic dim). The kernels sum in another
 order than their plain versions (and contract multiply-adds), so they
 agree to 1e-6 (f32) and 1e-12 (f64) of max|plain|, or of the largest term
 an output sums where that is larger (max|phi_in| for a sweep's phi,
@@ -20,7 +22,8 @@ On the CPU: the factored element matrix the nodal kernel gets
 (nodal_coefs) rebuilds mg_nodal._fem_element_matrix and, applied per cell
 as the kernel does, apply_nodal; the diag and mask formulas the kernels use
 (cell_diag, nodal_diag_mask) equal mg._diag, mg_nodal.nodal_diag and
-_dirichlet_mask; the wrappers check their arguments.
+_dirichlet_mask; the CUDA launches a call makes (grids); the wrappers
+check their arguments.
 """
 
 import itertools
@@ -93,12 +96,15 @@ def _cell_term(args):
     return m, float(mk.cell_diag(alpha, beta, a, b, dx, lo, hi).abs().max()) * m
 
 
-def _nodal_case(dev, cshape, lo, hi, dtype, seed=1):
+def _nodal_case(dev, cshape, lo, hi, dtype, seed=1, apart=False):
+    """Random phi and rhs (nodes), sigma (cells) and dx. A periodic dim's
+    last node equals its first unless `apart`: then the copies differ, as
+    no solver leaves them but as the convention covers."""
     rng = np.random.RandomState(seed)
     nshape = tuple(c + 1 for c in cshape)
     phi, rhs = rng.randn(*nshape), rng.randn(*nshape)
     for d in range(len(cshape)):
-        if lo[d] == NP:
+        if lo[d] == NP and not apart:
             for x in (phi, rhs):
                 x[tuple(-1 if e == d else slice(None) for e in range(len(cshape)))] = \
                     x[tuple(0 if e == d else slice(None) for e in range(len(cshape)))]
@@ -143,9 +149,10 @@ def test_cell_kernel_tiles(cuda, shape, lo, hi, nsweeps):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lo,hi", NODAL_BCS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_nodal_kernel(cuda, lo, hi, dtype):
+@pytest.mark.parametrize("copies", ["equal", "apart"])
+def test_nodal_kernel(cuda, lo, hi, dtype, copies):
     cshape = (16, 12, 20) if len(lo) == 3 else (40, 24)
-    base = _nodal_case(cuda, cshape, lo, hi, dtype)
+    base = _nodal_case(cuda, cshape, lo, hi, dtype, apart=copies == "apart")
     lev = mn.build_nodal_hierarchy(base[1], base[3], mn.NodalBC(lo, hi))[0]
     upd = lev.omega * lev.mask / lev.diag
     before = mk.LAUNCHES["mg_nodal_jacobi"]
@@ -161,7 +168,9 @@ def test_nodal_kernel(cuda, lo, hi, dtype):
 @pytest.mark.parametrize("cshape,lo,hi", NODAL_TILES)
 @pytest.mark.parametrize("nsweeps", [0, 1, 2, 3, 4])
 def test_nodal_kernel_tiles(cuda, cshape, lo, hi, nsweeps):
-    base = _nodal_case(cuda, cshape, lo, hi, torch.float32, seed=nsweeps)
+    # the periodic copies apart, each updated from its own values across
+    # tiles, chunks and chained launches
+    base = _nodal_case(cuda, cshape, lo, hi, torch.float32, seed=nsweeps, apart=True)
     omega = mn._jacobi_safe_omega(base[3], len(cshape))
     for want_resid in (True, False):
         args = (nsweeps, want_resid)
@@ -172,19 +181,38 @@ def test_nodal_kernel_tiles(cuda, cshape, lo, hi, nsweeps):
 
 @pytest.mark.cuda
 def test_one_launch_per_call(cuda):
-    """A V-cycle call (2 sweeps + residual, or 2 sweeps) is one CUDA launch."""
+    """A V-cycle call (2 sweeps + residual, or 2 sweeps) is one CUDA launch,
+    but for a nodal call with a periodic dim, which makes one a stage; GRIDS
+    counts them."""
     from torch.profiler import ProfilerActivity, profile
 
     cargs = _cell_args(cuda, (32, 32, 32), (P,) * 3, (P,) * 3, 0.0, torch.float32)
-    nbase = _nodal_case(cuda, (32, 32, 32), (NP,) * 3, (NP,) * 3, torch.float32)
+    periodic = _nodal_case(cuda, (32, 32, 32), (NP,) * 3, (NP,) * 3, torch.float32)
+    walled = _nodal_case(cuda, (32, 32, 32), (NN,) * 3, (NN,) * 3, torch.float32)
     for want_resid in (True, False):
+        mk.reset_launches()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             mk.cell_smooth(*cargs, 2, want_resid)
-            mk.nodal_jacobi(*nbase, 2, want_resid, omega=0.8)
+            mk.nodal_jacobi(*walled, 2, want_resid, omega=0.8)
             torch.cuda.synchronize()
         names = [e.key for e in prof.key_averages() for _ in range(e.count)]
         assert sum("mg_cell_gsrb_kernel" in k for k in names) == 1
         assert sum("mg_nodal_jacobi_kernel" in k for k in names) == 1
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mk.nodal_jacobi(*periodic, 2, want_resid, omega=0.8)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() for _ in range(e.count)]
+        assert sum("mg_nodal_jacobi_kernel" in k for k in names) == 2 + want_resid
+        assert mk.GRIDS == {"mg_cell_gsrb": 1, "mg_nodal_jacobi": 3 + want_resid}
+
+
+@pytest.mark.parametrize("stages,cap,want_resid,want", [
+    (0, 4, True, 1), (2, 4, True, 1), (3, 4, True, 1), (4, 4, True, 2), (4, 4, False, 1),
+    (9, 4, True, 3), (2, 1, True, 3), (2, 1, False, 2), (0, 1, True, 1), (10, 5, True, 3)])
+def test_grids_follow_the_chaining(stages, cap, want_resid, want):
+    """The CUDA launches a call makes: cap stages a launch, the residual on
+    the last sweep launch when it has room."""
+    assert mk.grids(stages, cap, want_resid) == want
 
 
 def _hadamard(dim):

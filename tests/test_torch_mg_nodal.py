@@ -48,9 +48,9 @@ def _close(ref, got, tol):
     assert err <= tol * scale, (err, scale)
 
 
-def _case(bcname, cshape=None, dtype=np.float64, seed=1):
+def _case(bcname, cshape=None, dtype=np.float64, seed=1, apart=False):
     """Random sigma (cells), phi and rhs (nodes; a periodic dim's last node
-    equals its first) and dx, as numpy arrays."""
+    equals its first unless `apart`) and dx, as numpy arrays."""
     lo, hi = BCS[bcname]
     dim = len(lo)
     if cshape is None:
@@ -59,7 +59,7 @@ def _case(bcname, cshape=None, dtype=np.float64, seed=1):
     nshape = tuple(c + 1 for c in cshape)
     phi, rhs = rng.randn(*nshape), rng.randn(*nshape)
     for d in range(dim):
-        if lo[d] == P:
+        if lo[d] == P and not apart:
             for a in (phi, rhs):
                 a[tuple(-1 if e == d else slice(None) for e in range(dim))] = \
                     a[tuple(0 if e == d else slice(None) for e in range(dim))]
@@ -133,6 +133,24 @@ def test_plain_sweep_matches_tpu_kernels_f32(bcname):
         got_p, got_r = tk.nodal_jacobi_ref(*base, 2, True, upd=tupd, mask=tlev.mask)
         _close(pf, got_p, 1e-5)
         _close(rf, got_r, 1e-5)
+
+
+@pytest.mark.parametrize("bcname", [b for b in BCS if P in BCS[b][0]])
+def test_plain_sweep_copies_apart_f64(bcname):
+    """Where a solve leaves the two copies of a periodic dim's duplicated
+    node apart (a hydrostatic outflow strip across a periodic dim makes the
+    right-hand side differ), each is updated from its own values: the
+    kernel's plain version (sweeps, then the residual) equals
+    mg_nodal._jacobi and _nodal_residual of the JAX package."""
+    c = _case(bcname, apart=True)
+    jbc, tbc, jlev, tlev = _levels(c)
+    jphi, jrhs = jnp.asarray(c["phi"]), jnp.asarray(c["rhs"])
+    base = (torch.as_tensor(c["phi"]), tlev.sigma, torch.as_tensor(c["rhs"]), c["dx"],
+            c["lo"], c["hi"])
+    got_p, got_r = tk.nodal_jacobi_ref(*base, 3, True, omega=tlev.omega)
+    ref_p = jn._jacobi(jphi, jrhs, jlev, jbc, 3)
+    _close(ref_p, got_p, 1e-13)
+    _close(jn._nodal_residual(ref_p, jrhs, jlev, jbc), got_r, 1e-13)
 
 
 SOLVES = ["periodic", "walls", "outflow"]
