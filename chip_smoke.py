@@ -84,7 +84,24 @@ Phases (any failure raises and exits non-zero):
      counts, a profiled step), the 2D MG kernels vs plain on its finest
      level, the lid-driven cavity 64^2 f64 GPU vs CPU;
  15b. a fluid at rest under gravity with a lateral outflow face, 64^3, 3
-     steps in f32 and f64: max|u| must stay below 2e-2 and 2e-3.
+     steps in f32 and f64: max|u| must stay below 2e-2 and 2e-3;
+ 16. the program: `python -m iamr_tpu_torch` in subprocesses, in a temporary
+     directory removed at the end. (a) examples/inputs.3d.hit_forced at
+     256^3 (spectral path) with 65536 particles from a seeded init file, 4
+     steps, a plotfile at step 4, npz checkpoints at 2 and 4, the monitors
+     every step and a run log; a second run from chk00002 to step 4 must
+     write the same chk00004 (every array), particle file and plotfile
+     bit for bit; the plotfile, read back by io/plotfile.read_plotfile,
+     holds the state's fields and its particle_count sums to the live
+     particles. (b) examples/inputs.3d.rayleigh_taylor at 128x128x256
+     (tolerance mode, the only one an inputs file selects), AMReX-format
+     checkpoints every step, 2 steps (beside the HIT restart, the two
+     sharing the card), and a restart from chk00001 that writes chk00002
+     byte for byte. Each run's kernel calls (the CLI's last
+     line) must include K1 and K2 once a step, and the multigrid kernels
+     where the run solves with them. Printed: each run's wall seconds, the
+     step times of (a) against phase 5's s/step, the seconds, bytes and
+     GB/s of the plotfile and checkpoint writes.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
@@ -93,6 +110,7 @@ a CUDA device. Imports no JAX.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -503,7 +521,7 @@ def phase_slice(dev, gk, mk, card, n=256, nparticles=65536, steps=3):
     k1_out = gk.extrap_plm(*k1_args)
     k2_out = gk.godunov_plm_multi(*k2_args, periodic=per)
     src = "iamr_tpu_torch/csrc/godunov_plm.cu"
-    return [
+    return s_step, [
         record("extrap_plm", src, "iamr_tpu/ops/pallas_godunov.py:944",
                launches["extrap_plm"], k1_err, k1_ms, k1_plain,
                tensor_bytes(vel_g, force_g, k1_out),
@@ -1457,6 +1475,176 @@ def phase_hydrostatic_rest(dev, n=64, steps=3):
     return {"rest_max_u_f32": out["float32"], "rest_max_u_f64": out["float64"]}
 
 
+CLI_WROTE = re.compile(r"^WROTE (.+) (\S+): (\d+) bytes in ([0-9.]+) s$", re.M)
+CLI_STEP = re.compile(r"^STEP (\d+) .* wall ([0-9.]+) s$", re.M)
+CLI_CALLS = re.compile(r"^kernel calls: (\{.*\})$", re.M)
+
+
+class CliRun:
+    """`python -m iamr_tpu_torch inputs overrides...` started in cwd, on the
+    card; finish() waits for it and returns its stdout, wall seconds and
+    kernel calls (a non-zero exit fails); kill() stops it."""
+
+    def __init__(self, inputs, overrides, cwd, label):
+        os.makedirs(cwd, exist_ok=True)
+        self.label = label
+        tmp = os.path.dirname(cwd)
+        self.out_path = os.path.join(tmp, os.path.basename(cwd) + ".stdout")
+        self.err_path = os.path.join(tmp, os.path.basename(cwd) + ".stderr")
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        with open(self.out_path, "w") as out, open(self.err_path, "w") as err:
+            self.t0 = time.perf_counter()
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "iamr_tpu_torch", inputs, *overrides], cwd=cwd,
+                env=env, stdout=out, stderr=err, stdin=subprocess.DEVNULL)
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def finish(self, card, note="", timeout=600):
+        rc = self.proc.wait(timeout=timeout)
+        secs = time.perf_counter() - self.t0
+        with open(self.out_path) as f:
+            stdout = f.read()
+        if rc != 0:
+            with open(self.err_path) as f:
+                raise RuntimeError(f"{self.label}: the CLI exited {rc}:\n{stdout[-3000:]}\n"
+                                   f"{f.read()[-3000:]}")
+        calls = json.loads(CLI_CALLS.findall(stdout)[-1])
+        log(f"  {self.label}: {secs:.3f} s wall for the CLI run{note}; kernel calls {calls} "
+            f"({card})")
+        for what, path, nbytes, wsecs in CLI_WROTE.findall(stdout):
+            log(f"    wrote {what} {path}: {int(nbytes)} bytes in {float(wsecs):.4f} s, "
+                f"{int(nbytes) / float(wsecs) / 1e9:.3f} GB/s{note} ({card})")
+        return stdout, secs, calls
+
+
+def same_files(a, b, skip=("job_info",)):
+    """The files under a and b are the same: equal bytes, and for an npz
+    (whose zip entries carry their write time) equal arrays; job_info
+    aside."""
+    import filecmp
+
+    def tree(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs)
+
+    if os.path.isfile(a):
+        pairs = [(a, b)]
+    elif tree(a) != tree(b):
+        raise AssertionError(f"{a} and {b} hold other files: {tree(a)} vs {tree(b)}")
+    else:
+        pairs = [(os.path.join(a, rel), os.path.join(b, rel)) for rel in tree(a)
+                 if os.path.basename(rel) not in skip]
+    for fa, fb in pairs:
+        if fa.endswith(".npz"):
+            with np.load(fa) as za, np.load(fb) as zb:
+                same = sorted(za.files) == sorted(zb.files) and all(
+                    za[k].dtype == zb[k].dtype and np.array_equal(za[k], zb[k])
+                    for k in za.files)
+        else:
+            same = filecmp.cmp(fa, fb, shallow=False)
+        if not same:
+            raise AssertionError(f"{fa} and {fb} differ")
+
+
+def phase_cli(card, spectral_s_step, n=256, nparticles=65536, rt_cells=(128, 128, 256)):
+    import shutil
+    import tempfile
+
+    from iamr_tpu_torch.io.plotfile import read_plotfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    out = {}
+    runs = []
+    try:
+        log(f"phase 16a: python -m iamr_tpu_torch, HIT {n}^3 f32 (spectral), {nparticles} "
+            f"particles, 4 steps, plotfile at 4, npz checkpoints at 2 and 4; restart from 2")
+        pos = np.random.RandomState(16).rand(nparticles, 3) - 0.5
+        init = os.path.join(tmp, "particles.txt")
+        with open(init, "w") as f:
+            f.write(f"{nparticles}\n" + "".join("%.17g %.17g %.17g\n" % tuple(p) for p in pos))
+        hit = os.path.join(root, "examples", "inputs.3d.hit_forced")
+        over = [f"amr.n_cell={n} {n} {n}", "max_step=4", "amr.plot_int=4", "amr.check_int=2",
+                "ns.sum_interval=1", "amr.run_log=runlog", f"particles.particle_init_file={init}",
+                "particles.particle_output_file=particles.out"]
+        a, b = os.path.join(tmp, "hit"), os.path.join(tmp, "hit_restart")
+        runs.append(CliRun(hit, over, a, "HIT straight"))
+        stdout, out["cli_hit_s"], calls = runs[-1].finish(card)
+        want = {"extrap_plm": 4, "godunov_plm_multi": 4, "mg_cell_gsrb": 0}
+        if any(calls[k] != v for k, v in want.items()) or calls["mg_nodal_jacobi"] < 1:
+            raise AssertionError(f"kernel calls {calls}: want {want} and the initial "
+                                 "projection's nodal calls")
+        walls = [float(w) for _, w in CLI_STEP.findall(stdout)]
+        log(f"  step wall seconds (host clock, each ending in the step's host read) {walls}; "
+            f"phase 5: {spectral_s_step:.6f} s/step ({card})")
+        out["cli_hit_step_s"] = walls
+
+        # the HIT restart and the straight RT run share the card (the
+        # figures above are the HIT run's alone)
+        log(f"phase 16b: python -m iamr_tpu_torch, Rayleigh-Taylor {rt_cells} f32, tolerance "
+            "mode, AMReX checkpoints every step, 2 steps, beside the HIT restart from "
+            "chk00002; then the RT restart from chk00001")
+        rt = os.path.join(root, "examples", "inputs.3d.rayleigh_taylor")
+        rt_over = ["amr.n_cell=" + " ".join(str(c) for c in rt_cells), "max_step=2",
+                   "amr.check_int=1", "amr.checkpoint_format=amrex", "ns.sum_interval=1"]
+        ra, rb = os.path.join(tmp, "rt"), os.path.join(tmp, "rt_restart")
+        runs.append(CliRun(hit, over + [f"amr.restart={os.path.join(a, 'chk00002')}"], b,
+                           "HIT restart from chk00002"))
+        runs.append(CliRun(rt, rt_over, ra, "RT straight"))
+        shared = " (two CLI runs on the card)"
+        _, out["cli_hit_restart_s"], calls = runs[-2].finish(card, shared)
+        if calls != {"extrap_plm": 2, "godunov_plm_multi": 2, "mg_cell_gsrb": 0,
+                     "mg_nodal_jacobi": 0}:
+            raise AssertionError(f"restart kernel calls {calls}")
+        _, out["cli_rt_s"], calls = runs[-1].finish(card, shared)
+        # one pressure iteration (an advance) in initialize, then 2 steps
+        if (calls["extrap_plm"], calls["godunov_plm_multi"]) != (3, 3) or min(
+                calls["mg_cell_gsrb"], calls["mg_nodal_jacobi"]) < 1:
+            raise AssertionError(f"kernel calls {calls}")
+        runs.append(CliRun(rt, rt_over + [f"amr.restart={os.path.join(ra, 'chk00001')}"], rb,
+                           "RT restart from chk00001"))
+
+        for name in ("chk00004", "plt00004", "particles.out"):
+            same_files(os.path.join(a, name), os.path.join(b, name))
+        log("  HIT: the restart's chk00004 (state.npz, particles.npz, meta.json), plt00004 and "
+            "particles.out equal the straight run's bit for bit")
+        with np.load(os.path.join(b, "chk00004", "state.npz")) as z:
+            st = {k: z[k] for k in ("vel", "rho", "trac")}
+        with np.load(os.path.join(b, "chk00004", "particles.npz")) as z:
+            alive = int(z["alive"].sum())
+        fields, _ = read_plotfile(os.path.join(b, "plt00004"))
+        for name, ref in (("x_velocity", st["vel"][0]), ("y_velocity", st["vel"][1]),
+                          ("z_velocity", st["vel"][2]), ("density", st["rho"]),
+                          ("tracer", st["trac"][0])):
+            if not np.array_equal(fields[name], ref.astype(np.float64)):
+                raise AssertionError(f"plotfile {name} is not the checkpoint's field")
+        with open(os.path.join(b, "particles.out")) as f:
+            written = int(f.readline())
+        count = int(fields["particle_count"].sum())
+        if not count == alive == written:
+            raise AssertionError(f"particle_count sums to {count}; {alive} alive, "
+                                 f"{written} written")
+        log(f"  HIT: plotfile fields equal the checkpoint's; particle_count sums to {count} = "
+            f"live particles ({card})")
+        del fields, st
+
+        _, out["cli_rt_restart_s"], calls = runs[-1].finish(card)
+        if (calls["extrap_plm"], calls["godunov_plm_multi"]) != (1, 1) or min(
+                calls["mg_cell_gsrb"], calls["mg_nodal_jacobi"]) < 1:
+            raise AssertionError(f"restart kernel calls {calls}")
+        same_files(os.path.join(ra, "chk00002"), os.path.join(rb, "chk00002"))
+        log("  RT: the restart's chk00002 equals the straight run's byte for byte")
+    finally:
+        for run in runs:
+            run.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -1493,7 +1681,7 @@ def main() -> int:
         return out
 
     timed(phase_kernels, dev, gk)
-    records = timed(phase_slice, dev, gk, mk, smi)
+    spectral_s_step, records = timed(phase_slice, dev, gk, mk, smi)
     timed(phase_cpu_parity, dev)
     timed(phase_cell_kernel, dev, mk)
     timed(phase_nodal_kernel, dev, mk)
@@ -1508,6 +1696,7 @@ def main() -> int:
     mg_metrics["walled_gpu_cpu_rel"] = timed(phase_gpu_cpu_walled, dev)
     mg_metrics.update(timed(phase_2d, dev, gk, mk, smi))
     mg_metrics.update(timed(phase_hydrostatic_rest, dev))
+    mg_metrics.update(timed(phase_cli, smi, spectral_s_step))
     log(f"metrics ({smi}): {json.dumps(mg_metrics)}")
     log(f"total {time.perf_counter() - t_start:.1f} s after the interpreter started")
 

@@ -1,8 +1,9 @@
-"""Carry state and tables across from the JAX package, given as numpy arrays.
+"""Carry state and tables across to and from the JAX package, as numpy arrays.
 
-Each function takes host arrays (np.asarray of the JAX side's fields) and
-returns the port's object on `device`, so a test can feed both packages the
-same state. Nothing here imports JAX.
+The *_from_numpy functions take host arrays (np.asarray of the JAX side's
+fields) and return the port's object on `device`, so a test can feed both
+packages the same state; state_to_numpy goes the other way, and the
+checkpoint writers use it. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -31,6 +32,14 @@ def state_from_numpy(fields, device, dtype: Optional[torch.dtype] = None) -> NSS
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
     return NSState(**{k: T(fields.get(k)) for k in NSState._fields})
+
+
+def state_to_numpy(state: NSState):
+    """{field: host numpy array} of an NSState, in its own dtype (time and
+    dt 0-d arrays, dsdt None where the state has none): what
+    state_from_numpy and the JAX package's NSState(**...) take back."""
+    return {k: None if v is None else v.detach().cpu().numpy()
+            for k, v in state._asdict().items()}
 
 
 def hit_from_numpy(tables) -> HITForcing:

@@ -34,6 +34,7 @@ import itertools
 
 import torch
 
+from iamr_tpu_torch import plugins
 from iamr_tpu_torch.ns.bcprovider import PhysBCProvider
 from iamr_tpu_torch.ns.forcing_hit import HITForcing
 from iamr_tpu_torch.ns.particles import advect_with_umac
@@ -64,24 +65,26 @@ def beta_faces(cfg: NSConfig, coef: float, device):
 
 def get_force(cfg: NSConfig, rho, time=None, hit=None):
     """Body force (rho-weighted): rho * gravity in the last dim, plus the
-    HIT spectral forcing evaluated at `time`."""
+    forcing `hit` (the HIT spectral forcing or a user forcing) evaluated at
+    `time`, a 0-d tensor on rho's device."""
     dim = cfg.dim
     f = [torch.zeros_like(rho) for _ in range(dim)]
     if abs(cfg.gravity) > 1e-4:
         f[dim - 1] = cfg.gravity * rho
     out = torch.stack(f)
     if hit is not None and time is not None:
-        out = out + hit.eval(cfg.geom, time, dtype=cfg.tdtype, device=rho.device)
+        out = out + hit.eval(cfg.geom, time, dtype=cfg.tdtype)
     return out
 
 
 def make_hit_forcing(cfg: NSConfig):
-    """HIT forcing mode tables when configured (turb.* namespace), else None.
-    User-registered forcings (the plugin registry) are not ported."""
-    if cfg.forcing == "default":
-        return None
+    """The forcing of prob.forcing: a user forcing registered under that
+    name (plugins.forcing), the HIT forcing mode tables (turb.* namespace),
+    or None."""
+    if cfg.forcing in plugins.FORCINGS:
+        return plugins.FORCINGS[cfg.forcing](cfg)
     if cfg.forcing != "hit":
-        raise NotImplementedError(f"forcing {cfg.forcing!r} is not ported")
+        return None
     return HITForcing.create(
         cfg.geom,
         nmodes=int(cfg.turb_param("nmodes", 4)),

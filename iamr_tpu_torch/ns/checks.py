@@ -8,6 +8,7 @@
                           same physical face (MacProj::test_umac_periodic)
   scan_fields             NaN and BogusValue (|x| >= BOGUS_THRESHOLD) flags
                           of the state's fields
+  check_finite            the NaN and infinity scan of ns.debug_nans
 
 The first three return 0-d tensors on the fields' device; run_debug_checks
 reads them on the host once a step.
@@ -78,3 +79,14 @@ def run_debug_checks(cfg, state, umac, divu_src=None, step=None):
     print(f"ns.debug {tag}max|D(umac)-S| = {div:.3e}   "
           f"periodic umac mismatch = {per:.3e}")
     return div, per
+
+
+def check_finite(state, step=None):
+    """ns.debug_nans: raise FloatingPointError naming every field of the
+    state that holds a NaN or an infinity (one host read)."""
+    fields = {k: v for k, v in state._asdict().items() if v is not None}
+    finite = torch.stack([torch.isfinite(v).all() for v in fields.values()]).tolist()
+    bad = [k for k, ok in zip(fields, finite) if not ok]
+    if bad:
+        tag = f" after step {step}" if step is not None else ""
+        raise FloatingPointError(f"ns.debug_nans: non-finite values in {', '.join(bad)}{tag}")

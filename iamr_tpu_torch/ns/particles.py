@@ -3,13 +3,17 @@
 Structure of arrays: positions (N, dim) and an alive mask. AdvectWithUmac is
 RK2 midpoint advection with multilinear interpolation of the MAC
 velocities; redistribute wraps periodic positions and retires particles
-that leave through other boundaries.
+that leave through other boundaries. The files: the ascii init file
+(particles.particle_init_file), the Timestamp file and the output file
+(particles.particle_output_file), the same bytes as the JAX package's, and
+the particle_count derive of plotfiles.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from iamr_tpu_torch.core.geometry import Geometry
@@ -23,6 +27,15 @@ class Particles(NamedTuple):
 def from_positions(pos, device, dtype=torch.float64) -> Particles:
     pos = torch.as_tensor(pos, dtype=dtype, device=device)
     return Particles(pos=pos, alive=torch.ones(pos.shape[0], dtype=torch.bool, device=device))
+
+
+def read_ascii_init_file(path: str, dim: int) -> np.ndarray:
+    """The particles.particle_init_file format: the count, then one
+    position per line -> (N, dim) float64."""
+    with open(path) as f:
+        toks = f.read().split()
+    n = int(toks[0])
+    return np.asarray(toks[1: 1 + n * dim], dtype=np.float64).reshape(n, dim)
 
 
 def _interp_mac(umac, pos, geom: Geometry):
@@ -101,3 +114,35 @@ def redistribute(parts: Particles, geom: Geometry) -> Particles:
             x = parts.pos[:, e]
             alive = alive & (x >= geom.prob_lo[e]) & (x <= geom.prob_hi[e])
     return Particles(pos=_wrap(parts.pos, geom), alive=alive)
+
+
+def particle_count(parts: Particles, geom: Geometry):
+    """Live particles per cell (the particle_count derive), int32 on the
+    particles' device; integer adds, so the same on any device."""
+    n = geom.ncell
+    lin = torch.zeros_like(parts.alive, dtype=torch.int64)
+    for e in range(geom.dim):
+        ie = torch.floor((parts.pos[:, e] - geom.prob_lo[e]) / geom.dx[e]).to(torch.int64)
+        lin = lin * n[e] + torch.clamp(ie, 0, n[e] - 1)
+    flat = torch.zeros(int(np.prod(n)), dtype=torch.int32, device=lin.device)
+    return flat.index_add_(0, lin, parts.alive.to(torch.int32)).reshape(n)
+
+
+def timestamp(parts: Particles, path: str, time: float):
+    """Append the live particles' index, the time and their positions to
+    the Timestamp file `path`, one line each."""
+    pos = parts.pos.cpu().numpy()
+    idx = np.flatnonzero(parts.alive.cpu().numpy())
+    line = f"%d {time:.12e} " + " ".join(["%.12e"] * pos.shape[1]) + "\n"
+    with open(path, "a") as f:
+        f.write("".join(map(line.__mod__, zip(idx.tolist(), *pos[idx].T.tolist()))))
+
+
+def write_ascii_particles(path: str, parts: Particles):
+    """particles.particle_output_file: the live particles' positions in the
+    ascii init-file format (the count, then one position per line)."""
+    pos = parts.pos.cpu().numpy()[parts.alive.cpu().numpy()]
+    line = " ".join(["%.16e"] * pos.shape[1]) + "\n"
+    with open(path, "w") as f:
+        f.write(f"{pos.shape[0]}\n")
+        f.write("".join(map(line.__mod__, zip(*pos.T.tolist()))))

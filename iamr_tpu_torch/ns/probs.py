@@ -12,9 +12,12 @@ Ported, in 2D and 3D (reference Source/prob/prob_init.cpp):
   11   Taylor-Green
   100  forced HIT (Tutorials/HIT/prob_init.cpp:43-86, the synthetic
        solenoidal field)
-Fields are built in numpy float64 exactly as the JAX package builds them,
-then placed on `device` in cfg's dtype. prob.ic_file, the plugin registry
-of user problems and ns.velocity_plotfile raise NotImplementedError.
+  100 with prob.ic_file: a gen_hit_ic.py spectral IC (utils/fileio.py)
+Any other probtype is a user problem of the plugin registry
+(plugins.problem_ic). ns.velocity_plotfile adds ns.velocity_plotfile_scale
+times a plotfile's velocity, looked up by name, to the IC (the reference's
+BL_USE_VELOCITY). Fields are built in numpy float64 exactly as the JAX
+package builds them, then placed on `device` in cfg's dtype.
 """
 
 from __future__ import annotations
@@ -22,12 +25,40 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from iamr_tpu_torch import plugins
+from iamr_tpu_torch.io.plotfile import read_plotfile
 from iamr_tpu_torch.ns.forcing_hit import init_hit_velocity
 from iamr_tpu_torch.ns.state import NSConfig, NSState
+from iamr_tpu_torch.utils.fileio import hit_velocity_from_file
 
 
 def _blob_r2(X, P, dim):
     return sum((X[d] - P(f"blob_{'xyz'[d]}", 0.0)) ** 2 for d in range(dim))
+
+
+def _add_plotfile_velocity(cfg: NSConfig, vel):
+    """vel += ns.velocity_plotfile_scale * the plotfile's velocity, its
+    components looked up by name from ns.velocity_plotfile_xvel_name
+    (x_velocity -> y_velocity, z_velocity; u_vel -> v_vel, w_vel; other
+    names take a y/z suffix). The plotfile's level 0 must be this grid."""
+    fields_pf, _ = read_plotfile(cfg.velocity_plotfile)
+    names = list(fields_pf)
+    xname = cfg.velocity_plotfile_xvel_name
+    if xname not in names:
+        raise ValueError(f"Could not find velocity fields in supplied velocity_plotfile "
+                         f"(looked for {xname!r})")
+    sibling = {"x": "yz", "X": "YZ", "u": "vw", "U": "VW"}
+    comp_names = [xname] + [
+        sibling[xname[:1]][i] + xname[1:] if xname[:1] in sibling else xname + "yz"[i]
+        for i in range(cfg.dim - 1)]
+    missing = [nm for nm in comp_names if nm not in names]
+    if missing:
+        raise ValueError(f"velocity_plotfile is missing components {missing} (has {names})")
+    for d, nm in enumerate(comp_names):
+        v = fields_pf[nm]
+        if v.shape != vel[d].shape:
+            raise ValueError(f"velocity_plotfile grid {v.shape} != problem grid {vel[d].shape}")
+        vel[d] = vel[d] + cfg.velocity_plotfile_scale * v
 
 
 def init_state(cfg: NSConfig, device) -> NSState:
@@ -140,18 +171,25 @@ def init_state(cfg: NSConfig, device) -> NSState:
                 np.cos(2 * a * two_pi * x) + np.cos(2 * b * two_pi * y)
             )
     elif pt == 100:
-        if isinstance(dict(cfg.prob).get("ic_file"), str):
-            raise NotImplementedError("prob.ic_file is not ported")
-        vel[...] = init_hit_velocity(
-            geom, urms=P("urms", 1.0), kpeak=P("kpeak", 4.0), seed=int(P("seed", 0)),
-        )
+        ic_file = dict(cfg.prob).get("ic_file")
+        if isinstance(ic_file, str) and ic_file:
+            vel[...] = hit_velocity_from_file(
+                ic_file, int(P("ic_n", geom.ncell[0])), geom,
+                urms_target=P("urms", 0.0) or None,
+            )
+        else:
+            vel[...] = init_hit_velocity(
+                geom, urms=P("urms", 1.0), kpeak=P("kpeak", 4.0), seed=int(P("seed", 0)),
+            )
         rho[...] = P("density", 1.0)
     else:
-        raise NotImplementedError(
-            f"probtype {pt} is not ported (1-8, 10, 11 and 100 are; user problems "
-            "of the plugin registry are not)")
+        if pt not in plugins.PROBLEM_ICS:
+            raise ValueError(f"unknown probtype {pt}")
+        fields = {"vel": vel, "rho": rho, "trac": trac, "temp": temp}
+        fields.update(plugins.PROBLEM_ICS[pt](cfg, X, fields) or {})
+        vel, rho, trac, temp = fields["vel"], fields["rho"], fields["trac"], fields["temp"]
     if cfg.velocity_plotfile:
-        raise NotImplementedError("ns.velocity_plotfile is not ported")
+        _add_plotfile_velocity(cfg, vel)
 
     dtype = cfg.tdtype
 

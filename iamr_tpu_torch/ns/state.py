@@ -9,6 +9,8 @@ read from an inputs file is the same in both packages.
 from __future__ import annotations
 
 import dataclasses
+import os
+import re
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -155,6 +157,16 @@ def _phys_bcs(pp: ParmParse, dim: int, periodic):
             vals.append(float(sc.query("temp", 1.0)))
             bc_values[(d, s)] = tuple(vals)
     return tuple(phys_lo), tuple(phys_hi), bc_values
+
+
+def dim_hint_from_path(path) -> Optional[int]:
+    """The spatial dimension from the reference's inputs-file naming
+    (inputs.2d.*, regtest.3d.*, ...), or None. The reference fixes DIM at
+    compile time and its inputs files often carry 3-component arrays in 2D
+    (amr.n_cell = 64 64 16), so the .2d./.3d. token decides where present."""
+    name = os.path.basename(str(path)).lower()
+    m = re.search(r"(?:^|[._-])([23])d(?:$|[._-])", name)
+    return int(m.group(1)) if m else None
 
 
 def config_from_inputs(pp: ParmParse, dim_hint: Optional[int] = None,

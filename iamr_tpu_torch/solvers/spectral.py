@@ -113,8 +113,14 @@ def solve_nodal_poisson(rhs_nodes, sigma0, dx: Sequence[float]):
 def spectral_eligible(cfg, rho0=None) -> bool:
     """Eligibility of the FFT path for a single-level, non-EB, non-RZ run:
     every side periodic, no LES, and (ns.fft_solve = -1, auto) a uniform
-    initial density. ns.fft_solve = 1 forces it on, 0 off. Reads rho0 on
-    the host once."""
+    density, to within the projection tolerance cfg.proj_tol of its size.
+    ns.fft_solve = 1 forces it on, 0 off. Reads rho0 on the host once.
+
+    The JAX package requires every value equal, but a uniform density
+    advected through a step comes back uniform only to a few ulps: its
+    restarts leave the FFT path for the multigrid. Below proj_tol the two
+    paths solve the same problem to the tolerance the multigrid would
+    reach."""
     if cfg.fft_solve == 0:
         return False
     if not all(cfg.dom.is_periodic(d) for d in range(cfg.dim)):
@@ -125,5 +131,5 @@ def spectral_eligible(cfg, rho0=None) -> bool:
         return True
     if rho0 is None:
         return False
-    r = torch.as_tensor(rho0).reshape(-1)
-    return bool((r == r[0]).all())
+    lo, hi = torch.aminmax(torch.as_tensor(rho0))
+    return bool(hi - lo <= cfg.proj_tol * torch.maximum(hi.abs(), lo.abs()))

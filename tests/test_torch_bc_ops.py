@@ -110,9 +110,13 @@ def test_probtypes(pt, direction, dim):
 
 
 def test_unported_probtype_raises():
-    _, tcfg = configs(PROB.format(n="8 8", lo="0. 0.", hi="1. 1.", per="1 1", bc="0 0",
-                                  pt=42, direction=0))
-    with pytest.raises(NotImplementedError):
+    """A probtype neither built in nor registered (plugins.problem_ic) is
+    refused with the JAX package's ValueError."""
+    jcfg, tcfg = configs(PROB.format(n="8 8", lo="0. 0.", hi="1. 1.", per="1 1", bc="0 0",
+                                     pt=42, direction=0))
+    with pytest.raises(ValueError, match="unknown probtype 42"):
+        jprobs.init_state(jcfg)
+    with pytest.raises(ValueError, match="unknown probtype 42"):
         tprobs.init_state(tcfg, CPU)
 
 

@@ -1,8 +1,10 @@
 """The PyTorch port imports neither JAX nor the JAX package: every
-iamr_tpu_torch module, and chip_smoke.py, load in a fresh interpreter with
-no 'jax', 'jax.*', 'iamr_tpu' or 'iamr_tpu.*' module in sys.modules (the GPU
-machine has no JAX installed; the port keeps its own copies of the plain
-Python modules it needs). Those copies (config.parmparse, core.geometry,
+iamr_tpu_torch module (the output modules io.*, ns.derive, plugins,
+utils.fileio and the __main__ of `python -m iamr_tpu_torch` among them), and
+chip_smoke.py, load in a fresh interpreter with no 'jax', 'jax.*',
+'iamr_tpu' or 'iamr_tpu.*' module in sys.modules (the GPU machine has no
+JAX installed; the port keeps its own copies of the plain Python modules it
+needs). Those copies (config.parmparse, core.geometry,
 core.bc) parse and build examples/inputs.3d.hit_forced, the 2D lid-driven
 cavity and walled, inflow, outflow and thermal inputs as the JAX package's
 do, down to the velocity, scalar and temperature BC records. chip_smoke.py
@@ -35,8 +37,10 @@ import iamr_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(iamr_tpu_torch.__path__, "iamr_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 26, names
-assert "iamr_tpu_torch.ns.checks" in names, names
+assert len(names) >= 42, names
+for name in ("ns.checks", "ns.derive", "plugins", "io.vismf", "io.plotfile", "io.checkpoint",
+             "io.amrex_chk", "utils.fileio", "__main__"):
+    assert "iamr_tpu_torch." + name in names, (name, names)
 """ + FOREIGN
 
 IMPORT_SMOKE = """

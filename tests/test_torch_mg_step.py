@@ -8,8 +8,8 @@ across by iamr_tpu_torch.convert).
     velocity perturbation, fed to both packages, keeps face states off
     Riemann ties (tests/test_torch_advance.py).
   * driver.initialize (initial velocity projection, first dt, one
-    pressure iteration) on the same config, then one driver.run step from
-    it (the port's run starting from state=None).
+    pressure iteration) on the same config, then one driver.run step with
+    the same particles from it (the port's run starting from state=None).
 
 Tolerance 1e-10 of max|ref| on vel, rho, p, gradp, dt and particle
 positions (the two differ by reduction roundoff only).
@@ -101,7 +101,15 @@ def test_initialize_then_run():
     tst = tdriver.initialize(tcfg, fixed_mg_cycles=4, device="cpu")
     for k in FIELDS:
         _close(getattr(jst, k), getattr(tst, k))
-    jst = jdriver.run(jcfg, jst, max_steps=1, fixed_mg_cycles=4)
-    tst = tdriver.run(tcfg, None, max_steps=1, fixed_mg_cycles=4, device="cpu")
+    # with the particles of test_hit_mg_steps_with_particles: the JAX
+    # package compiles one step program for both tests
+    pos = np.random.RandomState(7).rand(256, 3) - 0.5
+    jparts = []
+    jst = jdriver.run(jcfg, jst, max_steps=1, fixed_mg_cycles=4,
+                      particles=jpart.from_positions(jnp.asarray(pos)),
+                      particle_hooks=lambda step, s, p: jparts.append(p))
+    tst, tparts = tdriver.run(tcfg, None, max_steps=1, fixed_mg_cycles=4, device="cpu",
+                              particles=convert.particles_from_numpy(pos, CPU))
     for k in FIELDS:
         _close(getattr(jst, k), getattr(tst, k))
+    _close(jparts[-1].pos, tparts.pos)

@@ -12,13 +12,16 @@ multi-field Godunov path, rho U as conservative rows with force rows. The
 
 Each case goes through tests/torch_parity.py::run_both: initialize
 without pressure iterations, compared; a seeded 1e-3 velocity perturbation
-fed to both; driver.run for 2 steps, compared to 1e-10 of max|ref|.
+fed to both; driver.run for 2 steps, compared to 1e-10 of max|ref|. The
+switches do not enter initialize, so the 2D cases of one mode share the
+JAX package's initialize (made once per module).
 """
 
 import pytest
 import torch
 
-from torch_parity import example_text, run_both
+from iamr_tpu.ns import driver as jdriver
+from torch_parity import configs, example_text, run_both
 
 torch.set_num_threads(2)
 
@@ -28,11 +31,26 @@ SWITCHES = {"mom_diff": "ns.do_mom_diff = 1", "denminmax": "ns.do_denminmax = 1"
             "no_mac_proj": "ns.do_mac_proj = 0"}
 
 
+@pytest.fixture(scope="module")
+def rt2d_init():
+    """The JAX package's initialize of RT 2D (no pressure iterations), by
+    mode, made on first use."""
+    made = {}
+
+    def get(fixed):
+        if fixed not in made:
+            jcfg, _ = configs(example_text(RT2D))
+            made[fixed] = jdriver.initialize(jcfg, fixed_mg_cycles=fixed, init_iters=0)
+        return made[fixed]
+
+    return get
+
+
 @pytest.mark.parametrize("switch,fixed", [
     pytest.param(line, fixed, id=name + ("" if fixed else "-tolerance"))
     for fixed in (4, None) for name, line in SWITCHES.items()])
-def test_step_switches_match(switch, fixed):
-    tcfg, tst = run_both(example_text(RT2D, switch), fixed)
+def test_step_switches_match(switch, fixed, rt2d_init):
+    tcfg, tst = run_both(example_text(RT2D, switch), fixed, jinit=rt2d_init(fixed))
     assert bool(torch.isfinite(tst.vel).all())
 
 
