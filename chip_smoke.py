@@ -101,7 +101,36 @@ Phases (any failure raises and exits non-zero):
      line) must include K1 and K2 once a step, and the multigrid kernels
      where the run solves with them. Printed: each run's wall seconds, the
      step times of (a) against phase 5's s/step, the seconds, bytes and
-     GB/s of the plotfile and checkpoint writes.
+     GB/s of the plotfile and checkpoint writes;
+ 17. LES at full width: phase 9's HIT 256^3 f32 state and particles with
+     ns.do_LES = 1 (Smagorinsky, Cs 0.18), fixed_mg_cycles=4, stepped with
+     spectral=True (the step turns the FFT solvers off under LES), 1
+     warm-up + 3 timed steps; wrapper calls per step by the formula (the
+     tensor solve's 3 passes of one one-cycle solve per component), no
+     host sync, a profiled step whose CUDA launches equal the counted
+     ones, divergence, peak memory; the cell kernel against its plain
+     version on the finest tensor-solve call as captured (variable mu);
+     one timed Sigma step and its eigenvalue solve (torch.linalg.eigvalsh,
+     which reads its status back: a sync);
+ 18. the advection variants at full width: phase 12's Rayleigh-Taylor
+     256x256x512 f32 state stepped with Godunov_PPM, BDS and
+     use_forces_in_trans (fixed_mg_cycles=4, 1 warm-up + 2 timed steps
+     each): K1/K2 wrapper calls per step 0/0, 1/0 and 0/0, the MG calls
+     by the formula, a profiled step, peak memory;
+ 19. RZ at full width: HotSpot-RZ 1024x2048 f32
+     (examples/inputs.2d.hotspot_rz), driver.initialize, fixed_mg_cycles=4,
+     1 warm-up + 3 timed steps; MG calls by the formula, a profiled step,
+     the RZ MAC divergence max|(1/r) d(r u)/dr + dw/dz - S| dx/umax < 1e-2
+     (S the thermal source of the MAC projection); the 2D cell and nodal
+     kernels against their plain versions on the captured finest calls
+     (beta = 0 on the axis faces); then `python -m iamr_tpu_torch
+     examples/inputs.2d.hotspot_rz amr.n_cell="128 256" max_step=2`,
+     finished after phase 20, whose kernel calls must name the MG kernels;
+ 20. GPU (kernels) vs CPU (plain), f64, initialize + 2 steps to 1e-10:
+     HIT 16^3 LES with each model, RT 16x16x32 with PPM, BDS and
+     use_forces_in_trans, RT 2D 32x64 with BDS, HotSpot-RZ 32x64; an
+     unknown ns.advection_scheme equal to Godunov_PLM bit for bit on each
+     device.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
@@ -807,8 +836,11 @@ def expected_mg_launches(cells, cycles, cn_solves=3):
 
 def cn_solves(cfg):
     """The CN solves of a step: one per velocity component (with
-    viscosity), per diffusing tracer and for the conducting temperature."""
-    n = cfg.dim if cfg.vel_visc_coef > 0.0 else 0
+    viscosity; under LES the tensor solve's N_OUTER passes of one each),
+    per diffusing tracer and for the conducting temperature."""
+    from iamr_tpu_torch.solvers.tensor import N_OUTER
+
+    n = cfg.dim * N_OUTER if cfg.do_les else cfg.dim if cfg.vel_visc_coef > 0.0 else 0
     n += sum(1 for t in range(cfg.ntrac)
              if t < len(cfg.scal_diff_coefs) and cfg.scal_diff_coefs[t] > 0.0)
     return n + int(cfg.do_temp and cfg.temp_cond_coef > 0.0)
@@ -1019,7 +1051,7 @@ def phase_mg_slice(dev, gk, mk, card, n=256, nparticles=65536, steps=3, cycles=4
                "iamr_tpu/ops/pallas_fused.py:665",
                launches["mg_nodal_jacobi"], nodal_err, n_ms, n_plain,
                tensor_bytes(state.p, sigma, nrhs, n_out), nodal_ops(nodes, 2, 1)),
-    ], {"s_per_step": s_step, "cells_per_s": n**3 / s_step, **div}
+    ], {"s_per_step": s_step, "cells_per_s": n**3 / s_step, **div}, (state, parts)
 
 
 def phase_entry_point(dev, n=128, nparticles=4096):
@@ -1256,7 +1288,9 @@ def mg_pairs_on_step(label, kept, mk, dtype, card, timed=True):
         if timed:
             k_ms, p_ms = timed_pair(lambda: kern(*args, **kw), lambda: plain(*args, **kw))
             nbytes = tensor_bytes(args, kw, [t for t in got if t is not None])
-            log(f"  {label} {key}: {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card})")
+            b_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+            log(f"  {label} {key}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, bytes bound "
+                f"{b_ms:.4f} ms ({100 * b_ms / k_ms:.1f}% of it) ({card})")
             out[key] = (err, k_ms, p_ms, nbytes)
     return out
 
@@ -1355,9 +1389,8 @@ def phase_rt3d_kernels(dev, gk, mk, card, cfg, state, cycles=4):
             f"({100 * b / k_ms:.1f}%), nc = {len(args[0]) if name != 'extrap_plm' else 3} "
             f"({card})")
         out[name] = (err, k_ms, p_ms)
-    for key, (err, k_ms, p_ms, nbytes) in mg_pairs_on_step("RT", kept, mk, torch.float32,
-                                                          card).items():
-        log(f"  {key}: bytes bound {1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms")
+    for key, (err, k_ms, p_ms, _) in mg_pairs_on_step("RT", kept, mk, torch.float32,
+                                                     card).items():
         out[key] = (err, k_ms, p_ms)
     return {f"rt3d_{k}_ms": v[1] for k, v in out.items()}
 
@@ -1645,6 +1678,259 @@ def phase_cli(card, spectral_s_step, n=256, nparticles=65536, rt_cells=(128, 128
     return out
 
 
+def les_config(n, dtype, dev, model="Smagorinsky"):
+    """HIT (HIT_INPUTS) at n^3 with ns.do_LES = 1 and the LES model, Cs at
+    its default (Smagorinsky 0.18, Sigma 1.5)."""
+    from iamr_tpu_torch.config.parmparse import ParmParse
+    from iamr_tpu_torch.ns.state import config_from_inputs
+
+    text = HIT_INPUTS.format(n=n, dtype=dtype, init_iter=0, fft_solve=-1)
+    text += f"ns.do_LES = 1\nns.LES_model = {model}\n"
+    return config_from_inputs(ParmParse.from_string(text), device=dev)
+
+
+def phase_les(dev, gk, mk, card, start, steps=3, cycles=4):
+    """start: phase 9's HIT state and particles (HIT's numpy initial
+    condition at 256^3 takes seconds to build)."""
+    from iamr_tpu_torch.ns import les
+    from iamr_tpu_torch.ns.advance import advance, make_hit_forcing, make_step_with_particles
+    from iamr_tpu_torch.ns.bcprovider import PhysBCProvider
+
+    state, parts = start
+    n, nparticles = state.rho.shape[0], parts.pos.shape[0]
+    log(f"phase 17: HIT {n}^3 f32 with LES (Smagorinsky, Cs 0.18), {nparticles} particles, "
+        f"fixed_mg_cycles={cycles}, from phase 9's state, 1 warm-up + {steps} timed steps")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = les_config(n, "float32", dev)
+    # spectral=True on purpose: the step itself turns the FFT solvers off
+    # under LES (variable viscosity), so the MG kernels must run
+    step = make_step_with_particles(cfg, cycles, spectral=True)
+    want = dict(expected_mg_launches((n,) * 3, cycles, cn_solves(cfg)), extrap_plm=1,
+                godunov_plm_multi=1)
+    (state, parts), s_step, per_step = run_steps(lambda c: step(*c), (state, parts), steps,
+                                                 gk, mk)
+    log(f"  launches per step: {per_step[-1]} (expected {want}; {cn_solves(cfg)} tensor-solve "
+        "passes of one V-cycle each)")
+    if any(c != want for c in per_step):
+        raise AssertionError(f"launch counts per step {per_step} != {want}")
+    check_state(state, parts)
+    log(f"  {s_step:.6f} s/step, {n**3 / s_step:.6e} cells/s on {card}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state, parts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log("  one more step under set_sync_debug_mode('error'): no host sync")
+    rows = profile_step(lambda: step(state, parts), card, top=12)
+    dev_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in rows) / 1e3
+    check_profiled_launches(rows, want)
+    _, umac = advance(state, cfg, cycles, hit=make_hit_forcing(cfg), return_umac=True)
+    div = divergence_report(cfg, state, umac)
+    if not div["max_mac_div_over_umax_dx"] < 1e-2:
+        raise AssertionError(f"MAC divergence after {cycles} V-cycles: {div}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  max_memory_allocated {peak / 2**30:.3f} GiB, max|u| "
+        f"{float(state.vel.abs().max()):.6e}")
+    # the finest call of the first inner tensor solve (variable mu), as
+    # captured (the MAC and nodal calls are phase 9's operators)
+    kept = step_kernel_inputs(cfg, state, cycles, gk, mk)
+    out = {f"les_{k}_ms": v[1] for k, v in mg_pairs_on_step(
+        "LES", {"cell_cn": kept["cell_cn"]}, mk, torch.float32, card).items()}
+
+    log("phase 17: one Sigma step (ns.LES_model = Sigma, Cs 1.5) and its eigenvalue solve")
+    scfg = les_config(n, "float32", dev, "Sigma")
+    sstep = make_step_with_particles(scfg, cycles)
+    sstep(state, parts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sstate, sparts = sstep(state, parts)
+    torch.cuda.synchronize()
+    sigma_s = time.perf_counter() - t0
+    check_state(sstate, sparts)
+    G = les._cc_gradients(scfg, PhysBCProvider(scfg), state.vel)
+    g = torch.stack([torch.stack([G[i][j] for j in range(3)], dim=-1) for i in range(3)], dim=-2)
+    gtg = torch.einsum("...ki,...kj->...ij", g, g)
+    eig_ms = cuda_ms(lambda: les.gram_eigenvalues(gtg), 3)
+    log(f"  Sigma step {sigma_s:.6f} s (host clock), torch.linalg.eigvalsh of {n**3} 3x3 "
+        f"f32 matrices ({les.EIG_BATCH} a call) {eig_ms:.4f} ms ({card})")
+    return {"les_s_per_step": s_step, "les_device_ms": dev_ms,
+            "les_max_mem_gib": peak / 2**30, "les_sigma_step_s": sigma_s,
+            "les_eigvalsh_ms": eig_ms, **{f"les_{k}": v for k, v in div.items()}, **out}
+
+
+# the advection variants and the Godunov kernels each step calls (K1, K2)
+VARIANTS = (("Godunov_PPM", "ns.advection_scheme=Godunov_PPM", (0, 0)),
+            ("BDS", "ns.advection_scheme=BDS", (1, 0)),
+            ("use_forces_in_trans", "godunov.use_forces_in_trans=1", (0, 0)))
+
+
+def phase_variants(dev, gk, mk, card, init, steps=2, cycles=4):
+    """init: phase 12's Rayleigh-Taylor state, from which each variant
+    steps."""
+    from iamr_tpu_torch.ns.advance import make_step
+
+    cells = tuple(init.rho.shape)
+    log(f"phase 18: the advection variants on Rayleigh-Taylor {cells} f32, "
+        f"fixed_mg_cycles={cycles}, from phase 12's state, 1 warm-up + {steps} timed "
+        "steps each")
+    out = {}
+    ncells = int(np.prod(cells))
+    for name, line, (k1, k2) in VARIANTS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cfg = rt_config(cells, "float32", dev, line)
+        step = make_step(cfg, cycles)
+        want = dict(expected_mg_launches(cells, cycles, cn_solves(cfg)), extrap_plm=k1,
+                    godunov_plm_multi=k2)
+        state, s_step, per_step = run_steps(step, init, steps, gk, mk)
+        log(f"  {name}: launches per step {per_step[-1]} (expected {want})")
+        if any(c != want for c in per_step):
+            raise AssertionError(f"{name}: launch counts per step {per_step} != {want}")
+        check_state(state)
+        rows = profile_step(lambda: step(state), card, top=8)
+        dev_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in rows) / 1e3
+        check_profiled_launches(rows, want)
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"  {name}: {s_step:.6f} s/step, {ncells / s_step:.6e} cells/s, {dev_ms:.3f} ms "
+            f"device time a step, max_memory_allocated {peak / 2**30:.3f} GiB ({card})")
+        out.update({f"{name}_s_per_step": s_step, f"{name}_device_ms": dev_ms,
+                    f"{name}_max_mem_gib": peak / 2**30})
+        del state
+    return out
+
+
+def rz_mac_divergence(cfg, state, umac):
+    """max|(1/r) d(r u)/dr + dw/dz - S| dx / max|u| of the projected MAC
+    velocities, S the MAC source of the step (the thermal divergence and
+    its dt/2 dsdt centring); also without S."""
+    from iamr_tpu_torch.ns.advance import _thermal_divu, rz_radii
+    from iamr_tpu_torch.ns.bcprovider import PhysBCProvider
+
+    dx = cfg.geom.dx
+    r_cell, r_face = rz_radii(cfg, umac[0].dtype, umac[0].device)
+    fr = r_face * umac[0]
+    div = torch.diff(fr, dim=0) / dx[0] / r_cell + torch.diff(umac[1], dim=1) / dx[1]
+    src = _thermal_divu(cfg, PhysBCProvider(cfg), state.temp, state.rho)
+    if src is not None and state.dsdt is not None:
+        src = src + 0.5 * state.dt * state.dsdt
+    scale = max(float(state.vel.abs().max()), 1e-30) / dx[0]
+    raw = float(div.abs().max()) / scale
+    res = raw if src is None else float((div - src).abs().max()) / scale
+    log(f"  RZ MAC divergence: max|div - S| dx/umax {res:.6e}, max|div| dx/umax {raw:.6e}")
+    return res, raw
+
+
+def phase_rz(dev, gk, mk, card, cells=(1024, 2048), steps=3, cycles=4):
+    """Returns the metrics and the started CLI run (finish_rz_cli ends it)."""
+    import tempfile
+
+    from iamr_tpu_torch.ns import driver
+    from iamr_tpu_torch.ns.advance import advance, make_step
+
+    log(f"phase 19: HotSpot-RZ {cells} f32 (examples/inputs.2d.hotspot_rz), "
+        f"fixed_mg_cycles={cycles}, driver.initialize + 1 warm-up + {steps} timed steps")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = example_config("inputs.2d.hotspot_rz", dev, "amr.n_cell=" + " ".join(map(str, cells)),
+                         "ns.dtype=float32")
+    t0 = time.perf_counter()
+    state = driver.initialize(cfg, fixed_mg_cycles=cycles, device=dev, init_iters=0)
+    torch.cuda.synchronize()
+    log(f"  initialize {time.perf_counter() - t0:.3f} s (radius-weighted projection, no "
+        f"hydrostatic pressure), dt {float(state.dt):.6e}")
+    step = make_step(cfg, cycles)
+    want = dict(expected_mg_launches(cells, cycles, cn_solves(cfg)), extrap_plm=0,
+                godunov_plm_multi=0)
+    state, s_step, per_step = run_steps(step, state, steps, gk, mk)
+    log(f"  launches per step: {per_step[-1]} (expected {want}; {cn_solves(cfg)} CN solves)")
+    if any(c != want for c in per_step):
+        raise AssertionError(f"launch counts per step {per_step} != {want}")
+    check_state(state)
+    ncells = int(np.prod(cells))
+    log(f"  {s_step:.6f} s/step, {ncells / s_step:.6e} cells/s on {card}")
+    rows = profile_step(lambda: step(state), card, top=8)
+    dev_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in rows) / 1e3
+    check_profiled_launches(rows, want)
+    _, umac = advance(state, cfg, cycles, return_umac=True)
+    res, raw = rz_mac_divergence(cfg, state, umac)
+    if not res < 1e-2:
+        raise AssertionError(f"RZ MAC divergence after {cycles} V-cycles: {res}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  max_memory_allocated {peak / 2**30:.3f} GiB, max|u| "
+        f"{float(state.vel.abs().max()):.6e}, max T {float(state.temp.max()):.6e}")
+    log("phase 19: the 2D MG kernels vs plain on HotSpot-RZ's captured finest calls (the "
+        "axis faces' beta = 0)")
+    kept = step_kernel_inputs(cfg, state, cycles, gk, mk)
+    missing = {"cell_mac", "cell_cn", "nodal"} - set(kept)
+    if missing:
+        raise AssertionError(f"the RZ step made no such call: {missing}")
+    axis = float(kept["cell_mac"][0][3][0].narrow(0, 0, 1).abs().max())
+    log(f"  the MAC call's beta on the axis faces: max {axis:.3e}")
+    out = {f"rz_{k}_ms": v[1] for k, v in mg_pairs_on_step("RZ", kept, mk, torch.float32,
+                                                             card).items()}
+    log("phase 19: python -m iamr_tpu_torch examples/inputs.2d.hotspot_rz "
+        "amr.n_cell=\"128 256\" max_step=2, started (finished after phase 20)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rz_")
+    inputs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                          "inputs.2d.hotspot_rz")
+    run = CliRun(inputs, ["amr.n_cell=128 256", "max_step=2"], os.path.join(tmp, "rz"),
+                 "HotSpot-RZ 128x256")
+    return {"rz_s_per_step": s_step, "rz_device_ms": dev_ms, "rz_max_mem_gib": peak / 2**30,
+            "rz_mac_div_over_umax_dx": res, "rz_mac_div_raw_over_umax_dx": raw, **out}, (run, tmp)
+
+
+def finish_rz_cli(started, card):
+    """The RZ CLI run of phase 19: its kernel calls must name the MG
+    kernels (and no Godunov kernel: 2D)."""
+    import shutil
+
+    run, tmp = started
+    try:
+        _, secs, calls = run.finish(card, " (beside phase 20)")
+        if calls["extrap_plm"] or calls["godunov_plm_multi"] or min(
+                calls["mg_cell_gsrb"], calls["mg_nodal_jacobi"]) < 1:
+            raise AssertionError(f"RZ CLI kernel calls {calls}")
+    finally:
+        run.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"rz_cli_s": secs}
+
+
+def phase_gpu_cpu_variants(dev):
+    from iamr_tpu_torch.ns import driver
+    from iamr_tpu_torch.ns.advance import make_step
+
+    log("phase 20: the slice's variants, GPU (kernels) vs CPU (plain), f64, initialize + "
+        "2 steps")
+    out = {}
+    for model in ("Smagorinsky", "Sigma"):
+        out[f"les_{model}"] = gpu_vs_cpu(f"HIT 16^3 LES {model}",
+                                         les_config(16, "float64", dev, model), dev, 4)
+    for name, line, _ in VARIANTS:
+        out[f"rt3d_{name}"] = gpu_vs_cpu(f"RT (16, 16, 32) {name}",
+                                         rt_config((16, 16, 32), "float64", dev, line), dev, 4)
+    out["rt2d_bds"] = gpu_vs_cpu("RT 2D (32, 64) BDS", rt_config(
+        (32, 64), "float64", dev, "ns.advection_scheme=BDS"), dev, 4)
+    out["hotspot_rz"] = gpu_vs_cpu("HotSpot-RZ (32, 64)", example_config(
+        "inputs.2d.hotspot_rz", dev, "amr.n_cell=32 64", "ns.dtype=float64"), dev, 4)
+    # an unknown scheme name runs as Godunov_PLM, bit for bit on each device
+    for where in (torch.device("cpu"), dev):
+        states = []
+        for scheme in ("Godunov_PLM", "Godunov_Fancy"):
+            cfg = rt_config((16, 16, 32), "float64", dev, f"ns.advection_scheme={scheme}")
+            st = driver.initialize(cfg, fixed_mg_cycles=4, device=where, init_iters=0)
+            noise = 1e-3 * np.random.RandomState(3).randn(*st.vel.shape)
+            st = st._replace(vel=st.vel + torch.as_tensor(noise, device=where))
+            step = make_step(cfg, 4)
+            states.append(step(step(st)))
+        for k in ("vel", "rho", "trac", "p", "gradp", "dt"):
+            if not torch.equal(getattr(states[0], k), getattr(states[1], k)):
+                raise AssertionError(f"unknown scheme != Godunov_PLM on {where} ({k})")
+        log(f"  ns.advection_scheme=Godunov_Fancy equals Godunov_PLM bit for bit on {where}")
+    return max(out.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -1685,18 +1971,26 @@ def main() -> int:
     timed(phase_cpu_parity, dev)
     timed(phase_cell_kernel, dev, mk)
     timed(phase_nodal_kernel, dev, mk)
-    mg_records, mg_metrics = timed(phase_mg_slice, dev, gk, mk, smi)
+    mg_records, mg_metrics, hit_state = timed(phase_mg_slice, dev, gk, mk, smi)
     timed(phase_entry_point, dev)
     mg_metrics.update(timed(phase_mlmg, dev, smi))
     rt_cfg, rt_state, rt_metrics = timed(phase_rt3d, dev, gk, mk, smi)
     mg_metrics.update(rt_metrics)
     mg_metrics.update(timed(phase_rt3d_kernels, dev, gk, mk, smi, rt_cfg, rt_state))
-    del rt_state
     timed(phase_rt3d_entry, dev)
     mg_metrics["walled_gpu_cpu_rel"] = timed(phase_gpu_cpu_walled, dev)
     mg_metrics.update(timed(phase_2d, dev, gk, mk, smi))
     mg_metrics.update(timed(phase_hydrostatic_rest, dev))
     mg_metrics.update(timed(phase_cli, smi, spectral_s_step))
+    mg_metrics.update(timed(phase_les, dev, gk, mk, smi, hit_state))
+    del hit_state
+    mg_metrics.update(timed(phase_variants, dev, gk, mk, smi, rt_state))
+    del rt_state
+    rz_metrics, rz_cli = timed(phase_rz, dev, gk, mk, smi)
+    mg_metrics.update(rz_metrics)
+    # the RZ CLI run shares the card with phase 20, which times nothing
+    mg_metrics["variants_gpu_cpu_rel"] = timed(phase_gpu_cpu_variants, dev)
+    mg_metrics.update(timed(finish_rz_cli, rz_cli, smi))
     log(f"metrics ({smi}): {json.dumps(mg_metrics)}")
     log(f"total {time.perf_counter() - t_start:.1f} s after the interpreter started")
 

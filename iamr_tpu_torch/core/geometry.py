@@ -75,16 +75,6 @@ class Geometry:
         axes = [self.node_coords_1d(d) for d in range(self.dim)]
         return np.meshgrid(*axes, indexing="ij")
 
-    def rz_radii(self):
-        """(r_cell, r_face) column arrays for RZ (coord_sys=1, 2D: dim 0 is
-        the radial direction). Broadcastable against cell / x-face arrays;
-        used for the reference's radius scaling of divergences and
-        projection coefficients (Projection.cpp:1238-1505 radMult)."""
-        assert self.coord_sys == 1 and self.dim == 2
-        r_cell = self.cell_centers_1d(0)[:, None]
-        r_face = self.node_coords_1d(0)[:, None]
-        return r_cell, r_face
-
     def refine(self, ratio: int) -> "Geometry":
         return dataclasses.replace(
             self, ncell=tuple(n * ratio for n in self.ncell)

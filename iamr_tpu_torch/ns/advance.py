@@ -3,29 +3,35 @@ iamr_tpu/ns/advance.py).
 
 NavierStokes::advance (Almgren-Bell-Colella-Howell-Welcome JCP 142, 1998):
 
-  1. predict time-centred MAC velocities (Godunov PLM extrapolation with
-     forcing (visc + rho g - Gp)/rho; kernel K1 on the GPU in 3D)
+  1. predict time-centred MAC velocities (Godunov extrapolation with
+     forcing (visc + rho g - Gp)/rho; kernel K1 on the GPU in 3D PLM)
   2. MAC-project them (with the thermal divergence source of do_temp runs)
   3. Godunov advection of every advected field in one multi-field pass
-     (kernel K2 on the GPU in 3D; the plain functions field by field in
-     2D): velocity (convective, or rho U conservative under do_mom_diff),
-     density (conservative), tracers, temperature
+     (kernel K2 on the GPU in 3D PLM; the plain functions field by field
+     otherwise): velocity (convective, or rho U conservative under
+     do_mom_diff), density (conservative), tracers, temperature
   4. scalar updates: rho (clamped under do_denminmax), tracers and
      temperature with CN diffusion
   5. velocity update u* = u^n - dt aofs + dt (f - Gp)/rho_half, then the
-     CN viscous solve
+     CN viscous solve (under LES the implicit tensor solve,
+     solvers/tensor.py, with the eddy viscosity of ns/les.py)
   6. nodal projection -> U^{n+1}, p^{n+1/2}, Gp (outflow faces under
      gravity hold the hydrostatic phi)
 
-Ported path: 2D and 3D, single level, PLM, periodic, walled, inflow and
-outflow sides, variable density, do_temp, do_mom_diff, do_denminmax and
-do_mac_proj, with either the spectral (FFT) solvers of an all-periodic
-uniform-density run or the multigrid solvers (cell red-black Gauss-Seidel,
-FEM nodal Jacobi), to tolerance or for a fixed number of V-cycles. EB, RZ,
-LES, multi-box levels, BDS/PPM and use_forces_in_trans raise
+Ported path: 2D and 3D, single level, periodic, walled, inflow and outflow
+sides, variable density, the advection schemes Godunov_PLM, Godunov_PPM
+and BDS (any other name runs as PLM, as in the JAX package; the MAC
+predictor stays PLM under BDS), godunov.use_forces_in_trans, do_temp,
+do_mom_diff, do_denminmax, do_mac_proj, LES (Smagorinsky, Sigma in 3D)
+and RZ (2D axisymmetric, without velocity viscosity or LES, as the
+reference requires), with either the spectral (FFT) solvers of an
+all-periodic uniform-density run (not under LES or RZ) or the multigrid
+solvers (cell red-black Gauss-Seidel, FEM nodal Jacobi), to tolerance or
+for a fixed number of V-cycles. EB and multi-box levels raise
 NotImplementedError. The step runs eagerly on the tensors' device; in
 fixed-cycle or spectral mode it reads nothing back to the host (tolerance
-mode reads one residual norm per V-cycle).
+mode reads one residual norm per V-cycle; the Sigma model's eigenvalue
+solve reads its status).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import torch
 from iamr_tpu_torch import plugins
 from iamr_tpu_torch.ns.bcprovider import PhysBCProvider
 from iamr_tpu_torch.ns.forcing_hit import HITForcing
+from iamr_tpu_torch.ns.les import eddy_viscosity_faces, tensor_cross_terms
 from iamr_tpu_torch.ns.particles import advect_with_umac
 from iamr_tpu_torch.ns.state import NSConfig, NSState
 from iamr_tpu_torch.ops.godunov import advect_field, extrap_vel_to_faces
@@ -45,6 +52,11 @@ from iamr_tpu_torch.parallel.reduce import invariant_mean
 from iamr_tpu_torch.solvers import diffusion as diff
 from iamr_tpu_torch.solvers.mac import mac_project
 from iamr_tpu_torch.solvers.nodal_proj import hydrostatic_phi_bc, level_project
+from iamr_tpu_torch.solvers.tensor import diffuse_tensor_velocity
+
+# ns.advection_scheme -> the Godunov functions' scheme; any other name runs
+# as PLM, as in the JAX package
+SCHEMES = {"Godunov_PLM": "plm", "Godunov_PPM": "ppm", "BDS": "bds"}
 
 
 def mu_faces(cfg: NSConfig, device):
@@ -138,15 +150,28 @@ def est_time_step(cfg: NSConfig, state: NSState, hit=None):
     return cfg.cfl * torch.where(ok, dt, fallback)
 
 
-def _check_supported(cfg: NSConfig):
-    if cfg.geom.coord_sys != 0:
-        raise NotImplementedError("RZ is not ported")
-    if cfg.do_les:
-        raise NotImplementedError("LES is not ported")
-    if cfg.advection_scheme != "Godunov_PLM":
-        raise NotImplementedError(f"{cfg.advection_scheme} is not ported (PLM is)")
-    if cfg.use_forces_in_trans:
-        raise NotImplementedError("godunov.use_forces_in_trans is not ported")
+def rz_radii(cfg: NSConfig, dtype, device):
+    """(r_cell, r_face) of an RZ run (coord_sys = 1, 2D, dim 0 radial) as
+    (n_r, 1) and (n_r + 1, 1) tensors on `device`, broadcastable against
+    cell and x-face arrays (the reference's radMult scaling of divergences
+    and projection coefficients), or None when the geometry is Cartesian.
+    Formed on the device in float64 and cast: a copy from the host would
+    wait for the stream."""
+    geom = cfg.geom
+    if geom.coord_sys != 1:
+        return None
+    lo, h, n = geom.prob_lo[0], geom.dx[0], geom.ncell[0]
+    ar = lambda k: torch.arange(k, dtype=torch.float64, device=device)
+    r_cell = lo + (ar(n) + 0.5) * h
+    r_face = lo + ar(n + 1) * h
+    return r_cell.to(dtype)[:, None], r_face.to(dtype)[:, None]
+
+
+def _check_rz(cfg: NSConfig):
+    """The reference forbids RZ with viscosity (NavierStokesBase.cpp:246-256)."""
+    if cfg.geom.coord_sys == 1 and (cfg.vel_visc_coef > 0.0 or cfg.do_les):
+        raise NotImplementedError("RZ with viscosity is not supported "
+                                  "(matches the reference restriction)")
 
 
 def _thermal_divu(cfg: NSConfig, bcp, temp, rho):
@@ -189,11 +214,12 @@ def advance(
 
     spectral: every implicit solve (MAC and nodal projection, CN diffusion)
     runs in Fourier space; the caller decides eligibility beforehand
-    (solvers.spectral.spectral_eligible). Otherwise the solves are
+    (solvers.spectral.spectral_eligible), and the flag is turned off here
+    under LES, RZ and a side that is not periodic. Otherwise the solves are
     multigrid: to the config's tolerances, or with fixed_mg_cycles
     V-cycles for the projections and max(1, fixed_mg_cycles // 4) for the
     diffusion solves (strongly diagonally dominant at CFL-limited dt)."""
-    _check_supported(cfg)
+    _check_rz(cfg)
     if bcp is None:
         bcp = PhysBCProvider(cfg)
     dim = cfg.dim
@@ -203,13 +229,24 @@ def advance(
     vel, rho, trac, p, gradp = state.vel, state.rho, state.trac, state.p, state.gradp
     recs = [bcp.vel_bcrec(c) for c in range(dim)]
     periodic = tuple(cfg.geom.periodic)
+    # the FFT solvers need all-periodic Cartesian constant-viscosity runs
+    spectral = spectral and cfg.geom.coord_sys == 0 and not cfg.do_les and all(periodic)
+    scheme = SCHEMES.get(cfg.advection_scheme, "plm")
+    # BDS advects the fields; the MAC predictor stays Godunov
+    mac_scheme = "plm" if scheme == "bds" else scheme
+    uft = cfg.use_forces_in_trans
+    rz = rz_radii(cfg, cfg.tdtype, dev)
     t_half = state.time + 0.5 * dt
     mf = mu_faces(cfg, dev)
+    if cfg.do_les:
+        # molecular + eddy viscosity at t^n (getViscosity + calc_mut_LES)
+        mf = tuple(m + t for m, t in zip(mf, eddy_viscosity_faces(cfg, bcp, vel)))
+    viscous = cfg.vel_visc_coef > 0.0 or cfg.do_les
     diff_cycles = None if fixed_mg_cycles is None else max(1, fixed_mg_cycles // 4)
     mom_diff = cfg.do_mom_diff
 
     # --- 1. predict MAC velocities -------------------------------------
-    if cfg.vel_visc_coef > 0.0 and cfg.be_cn_theta != 1.0:
+    if viscous and cfg.be_cn_theta != 1.0:
         visc = torch.stack([
             diff.visc_terms_component(
                 vel[c], mf, dx, recs[c],
@@ -218,6 +255,9 @@ def advance(
             )
             for c in range(dim)
         ])
+        if cfg.do_les:
+            # the variable viscosity's tensor cross terms
+            visc = visc + tensor_cross_terms(cfg, bcp, vel, mf)
     else:
         visc = torch.zeros_like(vel)
     tf = get_force(cfg, rho, t_half, hit)
@@ -228,7 +268,8 @@ def advance(
     bcvals_hi = tuple(bcp.vel_bcvals(c)[1] for c in range(dim))
     bl = tuple(tuple(bcvals_lo[c][d] for c in range(dim)) for d in range(dim))
     bh = tuple(tuple(bcvals_hi[c][d] for c in range(dim)) for d in range(dim))
-    umac = extrap_vel_to_faces(vel_g, force_g, dt, dx, cfg.geom.ncell, recs, bl, bh)
+    umac = extrap_vel_to_faces(vel_g, force_g, dt, dx, cfg.geom.ncell, recs, bl, bh,
+                               use_forces_in_trans=uft, scheme=mac_scheme)
 
     # --- 2. MAC projection ---------------------------------------------
     # the thermal source, centred in time with the previous step's dsdt
@@ -241,7 +282,7 @@ def advance(
         umac, _, _ = mac_project(
             umac, rho, cfg.dom, dx, divu_src=mac_divu, rtol=cfg.mac_tol,
             atol=cfg.mac_abs_tol, fixed_cycles=fixed_mg_cycles, bc=mac_bc, bvals=mac_bvals,
-            spectral_beta0=(1.0 / invariant_mean(rho)) if spectral else None,
+            spectral_beta0=(1.0 / invariant_mean(rho)) if spectral else None, rz=rz,
         )
     # (ns.do_mac_proj = 0, a debugging switch: advect with the predicted
     # MAC velocities)
@@ -259,7 +300,7 @@ def advance(
     if cfg.do_temp:
         fields.append((bcp.fill_temp(state.temp, 3), False, None))
 
-    if dim == 3:
+    if dim == 3 and scheme == "plm" and rz is None and not uft:
         # all fields in one multi-field pass (kernel K2 on CUDA tensors)
         flist = [f for (_, _, f) in fields if f is not None]
         rows, k = [], 0
@@ -272,12 +313,15 @@ def advance(
             periodic=periodic,
         )
     else:
-        # 2D has no Godunov kernel (nor has the JAX package): the plain
-        # functions, one field at a time, on every device
+        # 2D, PPM, BDS, RZ and use_forces_in_trans have no Godunov kernel
+        # (nor has the JAX package): the plain functions, one field at a
+        # time, on every device
+        inner = (slice(3, -3),) * dim
         adv = [
             advect_field(s_g, umac, umac_g, dt, dx, cfg.geom.ncell, icons,
-                         s_cc=None if icons else s_g[3:-3, 3:-3], force_g=fg,
-                         periodic=periodic)
+                         s_cc=None if icons else s_g[inner], force_g=fg,
+                         periodic=periodic, scheme=scheme, rz=rz,
+                         use_forces_in_trans=uft)
             for (s_g, icons, fg) in fields
         ]
 
@@ -335,7 +379,14 @@ def advance(
             vel[c] - dt * aofs_vel[c] + dt * (tf_half[c] - gradp[c]) / rho_half
             for c in range(dim)
         ])
-    if cfg.vel_visc_coef > 0.0:
+    if cfg.do_les:
+        # variable viscosity: the implicit tensor solve, cross terms inside
+        # the CN operator by a segregated outer iteration
+        vel_star = diffuse_tensor_velocity(
+            cfg, bcp, vel_star, vel, rho_half, mf, dt, cfg.be_cn_theta, rtol=cfg.visc_tol,
+            fixed_cycles=diff_cycles,
+        )
+    elif viscous:
         # dt folded into alpha: (alpha - theta L) u = ..., alpha = rho_half / dt
         alpha = rho_half / dt
         sp_args = (invariant_mean(alpha), cfg.vel_visc_coef) if spectral else None
@@ -360,7 +411,7 @@ def advance(
         vel_star, rho_half, p, gradp, dt, cfg.dom, dx, rtol=cfg.proj_tol,
         atol=cfg.proj_abs_tol, fixed_cycles=fixed_mg_cycles, bc=nodal_bc_,
         phi_bc=nodal_phi_bc, divu_src=divu_new,
-        spectral_sigma0=(1.0 / invariant_mean(rho_half)) if spectral else None,
+        spectral_sigma0=(1.0 / invariant_mean(rho_half)) if spectral else None, rz=rz,
     )
 
     # dsdt for the next step's MAC source (calc_dsdt)

@@ -9,8 +9,9 @@ self-checks of ns.debug (ns/checks.py), tracer particles, restarts from a
 step and a per-step callback. run_from_inputs: the reference's executable
 (main.cpp) on one inputs file: restarts from either checkpoint format,
 particles.*, and IOHooks' plotfiles, checkpoints, monitors and run logs.
-EB, RZ and AMR (amr.max_level >= 1, amr.regrid_file) raise
-NotImplementedError.
+RZ runs project with radius weights and start without the hydrostatic
+pressure, as in the JAX package. EB and AMR (amr.max_level >= 1,
+amr.regrid_file) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from iamr_tpu_torch.ns.advance import (
     make_hit_forcing,
     make_step,
     make_step_with_particles,
+    rz_radii,
 )
 from iamr_tpu_torch.ns.checks import check_finite, run_debug_checks
 from iamr_tpu_torch.ns.derive import (
@@ -66,12 +68,12 @@ def initialize(cfg: NSConfig, fixed_mg_cycles=None, device=None,
     iterations (each advances a trial step from the IC and keeps its p and
     Gp). init_iters overrides cfg.init_iter. The solves are multigrid, to
     the config's tolerances or with fixed_mg_cycles V-cycles, as in the JAX
-    package."""
-    if cfg.geom.coord_sys != 0:
-        raise NotImplementedError("RZ is not ported")
+    package. Gravity runs start from the hydrostatic pressure, but in RZ,
+    whose initial projection is radius-weighted."""
     device = CUDA if device is None else torch.device(device)
     n_init_iter = cfg.init_iter if init_iters is None else init_iters
     state = init_state(cfg, device)
+    rz = rz_radii(cfg, cfg.tdtype, device)
     if cfg.do_temp and cfg.temp_cond_coef > 0.0:
         # d(divu)/dt starts at zero
         state = state._replace(dsdt=torch.zeros_like(state.rho))
@@ -82,10 +84,10 @@ def initialize(cfg: NSConfig, fixed_mg_cycles=None, device=None,
         for _ in range(cfg.init_vel_iter):
             vel, _ = initial_velocity_project(
                 vel, sig, cfg.dom, cfg.geom.dx, rtol=cfg.proj_tol, atol=cfg.proj_abs_tol,
-                fixed_cycles=fixed_mg_cycles,
+                fixed_cycles=fixed_mg_cycles, rz=rz,
             )
         state = state._replace(vel=vel)
-    if abs(cfg.gravity) > 1e-4:
+    if abs(cfg.gravity) > 1e-4 and rz is None:
         p0, gp0 = initial_pressure_project(
             state.rho, cfg.gravity, cfg.dom, cfg.geom.dx, geom=cfg.geom, rtol=cfg.proj_tol,
             atol=cfg.proj_abs_tol, fixed_cycles=fixed_mg_cycles,

@@ -1,22 +1,28 @@
-"""Godunov PLM advection: MAC velocity prediction and scalar edge states
-(counterpart of iamr_tpu/ops/godunov.py, PLM path).
+"""Godunov advection: MAC velocity prediction and scalar edge states
+(counterpart of iamr_tpu/ops/godunov.py).
 
 Corner-transport-upwind scheme of Almgren-Bell-Colella-Howell-Welcome
-(JCP 142, 1998) with 4th-order monotonicity-limited slopes:
+(JCP 142, 1998):
 
-  1. limited slopes of each quantity in each dim,
-  2. normal predictor: L/R states extrapolated to faces at t + dt/2,
-  3. transverse corrections from upwinded "hat" states on transverse faces,
-  4. Riemann upwinding at the face.
+  1. normal predictor: L/R states extrapolated to faces at t + dt/2, from
+     4th-order monotonicity-limited slopes (PLM) or the Colella-Woodward
+     parabola (PPM, ppm_lr),
+  2. transverse corrections from upwinded "hat" states on transverse faces,
+  3. Riemann upwinding at the face.
+
+With use_forces_in_trans the dt/2 force term joins the predictor (hat)
+states instead of the final face states. ns.advection_scheme = BDS takes
+its edge states from ops/bds.py; rz weights the divergence of
+compute_fluxes_and_aofs by radius (2D axisymmetric).
 
 Inputs arrive pre-grown with filled ghosts (3 for the advected fields, 1
 for forces). These plain tensor functions are the reference for the CUDA
 kernels in ops/godunov_kernels.py; in 3D PLM without use_forces_in_trans
-(and without EB/RZ) extrap_vel_to_faces and advect_field hand off to those
-kernels, which run the plain functions themselves for CPU tensors.
-
-PPM, BDS, EB slopes, RZ and use_forces_in_trans are not ported yet and
-raise NotImplementedError.
+and RZ, extrap_vel_to_faces and advect_field hand off to those kernels,
+which run the plain functions themselves for CPU tensors. Every other
+case runs the plain functions on every device, as the JAX package does.
+The EB slopes and the box-batched advection (umac_gn) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -67,6 +73,51 @@ def slope4(qg, d):
     return _limit(dc, dl, dr)
 
 
+def ppm_lr(q3, d, cfl_L, cfl_R):
+    """PPM (Colella-Woodward 1984) normal predictor: the L/R face states.
+
+    q3: the quantity with 3 ghosts in dim d and one in the others; cfl_L /
+    cfl_R: nonnegative CFL numbers of the characteristics from below and
+    from above on the faces between consecutive cells of the ng=1 region.
+    4th-order interface values clamped between their cells, the CW
+    monotonisation and the parabola's average over the domain of
+    dependence. Returns (pL, pR), extent n_d+1 in d."""
+    m = q3.shape[d]
+    s_k = _shift(q3, d, 1, m - 3)
+    s_kp = _shift(q3, d, 2, m - 3)
+    s_km = _shift(q3, d, 0, m - 3)
+    s_kpp = _shift(q3, d, 3, m - 3)
+    sface = (7.0 / 12.0) * (s_k + s_kp) - (1.0 / 12.0) * (s_km + s_kpp)
+    sface = torch.clamp(sface, torch.minimum(s_k, s_kp), torch.maximum(s_k, s_kp))
+
+    # per-cell (s_minus, s_plus) of the ng=1 cells
+    mf = sface.shape[d]
+    sm = _shift(sface, d, 0, mf - 1)
+    sp = _shift(sface, d, 1, mf - 1)
+    c = _shift(q3, d, 2, m - 4)
+
+    # CW monotonisation
+    extremum = (sp - c) * (c - sm) <= 0.0
+    sm = torch.where(extremum, c, sm)
+    sp = torch.where(extremum, c, sp)
+    delta = sp - sm
+    s6 = 6.0 * (c - 0.5 * (sm + sp))
+    over_p = delta * s6 > delta * delta
+    over_m = -delta * delta > delta * s6
+    sm = torch.where(over_p, 3.0 * c - 2.0 * sp, sm)
+    sp = torch.where(over_m, 3.0 * c - 2.0 * sm, sp)
+    delta = sp - sm
+    s6 = 6.0 * (c - 0.5 * (sm + sp))
+
+    # traced to the faces at t + dt/2: the face between cells k (L), k+1 (R)
+    mc = c.shape[d]
+    spL, dL, s6L = (_shift(a, d, 0, mc - 1) for a in (sp, delta, s6))
+    smR, dR, s6R = (_shift(a, d, 1, mc - 1) for a in (sm, delta, s6))
+    pL = spL - 0.5 * cfl_L * (dL - (1.0 - 2.0 * cfl_L / 3.0) * s6L)
+    pR = smR + 0.5 * cfl_R * (dR + (1.0 - 2.0 * cfl_R / 3.0) * s6R)
+    return pL, pR
+
+
 def _trim(a, keep_ng, have_ng, dims=None):
     """Trim a grown array from have_ng to keep_ng ghosts (selected dims)."""
     cut = have_ng - keep_ng
@@ -100,13 +151,6 @@ def _as_dt(dt, like):
     return torch.as_tensor(dt, dtype=like.dtype, device=like.device)
 
 
-def _check_scheme(scheme, use_forces_in_trans):
-    if scheme != "plm":
-        raise NotImplementedError(f"advection scheme {scheme!r} is not ported")
-    if use_forces_in_trans:
-        raise NotImplementedError("use_forces_in_trans is not ported")
-
-
 def extrap_vel_to_faces(
     vel_g,
     force_g,
@@ -126,15 +170,18 @@ def extrap_vel_to_faces(
     n+2, ...) force (tf + visc - gradp)/rho with 1 ghost, or None.
     bcrecs[c]: BCRec of velocity component c; bcvals_lo/hi[d][c]: ext_dir
     values used to pin faces on inflow/no-slip boundaries.
-    fused: hand the 3D case to the kernel wrapper (godunov_kernels.extrap_plm).
+    fused: hand the 3D PLM case without use_forces_in_trans to the kernel
+    wrapper (godunov_kernels.extrap_plm).
+    use_forces_in_trans: the dt/2 force term joins the hat states (and so
+    the transverse terms) instead of the final face states.
+    scheme: "plm" or "ppm", the normal predictor.
 
     Returns the face arrays u_mac[d] (shape n_d+1 in dim d).
     """
-    _check_scheme(scheme, use_forces_in_trans)
     dim = vel_g.shape[0]
     ng = 3
     n = tuple(ncell)
-    if fused and dim == 3:
+    if fused and dim == 3 and scheme == "plm" and not use_forces_in_trans:
         from iamr_tpu_torch.ops.godunov_kernels import extrap_plm
 
         umac = extrap_plm(vel_g, force_g, dt, dx, n)
@@ -143,13 +190,14 @@ def extrap_vel_to_faces(
             for d in range(dim)
         )
     dt = _as_dt(dt, vel_g)
+    others = lambda d: [e for e in range(dim) if e != d]
 
     # limited slopes of every component in every dim on the ng=1 region
     slopes = [[None] * dim for _ in range(dim)]  # [comp][dir]
-    for c in range(dim):
-        for d in range(dim):
-            s = slope4(vel_g[c], d)
-            slopes[c][d] = _trim(s, 1, ng, dims=[e for e in range(dim) if e != d])
+    if scheme != "ppm":
+        for c in range(dim):
+            for d in range(dim):
+                slopes[c][d] = _trim(slope4(vel_g[c], d), 1, ng, dims=others(d))
 
     vel_1 = torch.stack([_trim(vel_g[c], 1, ng) for c in range(dim)])
 
@@ -160,14 +208,26 @@ def extrap_vel_to_faces(
         m = vel_1[0].shape[d]
         un_L = _shift(vel_1[d], d, 0, m - 1)
         un_R = _shift(vel_1[d], d, 1, m - 1)
-        cfl_L = dt / dx[d] * torch.clamp(un_L, min=0.0)
-        cfl_R = dt / dx[d] * torch.clamp(un_R, max=0.0)
         for c in range(dim):
+            if scheme == "ppm":
+                q3 = _trim(vel_g[c], 1, ng, dims=others(d))
+                cl = dt / dx[d] * torch.clamp(un_L, min=0.0)
+                cr = dt / dx[d] * torch.clamp(-un_R, min=0.0)
+                hat[d][c] = ppm_lr(q3, d, cl, cr)
+                continue
             q = vel_1[c]
             sq = slopes[c][d]
+            cfl_L = dt / dx[d] * torch.clamp(un_L, min=0.0)
+            cfl_R = dt / dx[d] * torch.clamp(un_R, max=0.0)
             qL = _shift(q, d, 0, m - 1) + 0.5 * (1.0 - cfl_L) * _shift(sq, d, 0, m - 1)
             qR = _shift(q, d, 1, m - 1) - 0.5 * (1.0 + cfl_R) * _shift(sq, d, 1, m - 1)
             hat[d][c] = (qL, qR)
+        if use_forces_in_trans and force_g is not None:
+            for c in range(dim):
+                qL, qR = hat[d][c]
+                fL = _shift(force_g[c], d, 0, m - 1)
+                fR = _shift(force_g[c], d, 1, m - 1)
+                hat[d][c] = (qL + 0.5 * dt * fL, qR + 0.5 * dt * fR)
 
     # Riemann-resolved hat values
     hat_vel = [None] * dim
@@ -207,7 +267,7 @@ def extrap_vel_to_faces(
             corr_R = corr_R + _shift(t, d, 1, n[d] + 1)
         uL_full = uL + corr_L
         uR_full = uR + corr_R
-        if force_g is not None:
+        if force_g is not None and not use_forces_in_trans:
             f_real = real_transverse(force_g[d], d)
             uL_full = uL_full + 0.5 * dt * _shift(f_real, d, 0, n[d] + 1)
             uR_full = uR_full + 0.5 * dt * _shift(f_real, d, 1, n[d] + 1)
@@ -290,12 +350,16 @@ def advect_field(
     use_forces_in_trans: bool = False,
 ):
     """Edge states + fluxes + advective tendency for one field; returns
-    (fluxes, aofs). In 3D it goes through the kernel wrapper
-    (godunov_kernels.godunov_plm, the multi-field kernel at nc=1)."""
-    _check_scheme(scheme, use_forces_in_trans)
-    if rz is not None or eb is not None or umac_gn is not None:
-        raise NotImplementedError("RZ, EB and box-batched advection are not ported")
-    if s_g.ndim == 3:
+    (fluxes, aofs). The 3D PLM case without RZ and use_forces_in_trans goes
+    through the kernel wrapper (godunov_kernels.godunov_plm, the
+    multi-field kernel at nc=1); the others run compute_edge_states and
+    compute_fluxes_and_aofs. rz: (r_cell, r_face) of a 2D axisymmetric
+    run. The EB slopes (eb) and the box-batched ghost faces (umac_gn) are
+    not ported."""
+    if eb is not None or umac_gn is not None:
+        raise NotImplementedError("EB and box-batched advection are not ported")
+    if (s_g.ndim == 3 and scheme == "plm" and rz is None
+            and not use_forces_in_trans):
         from iamr_tpu_torch.ops.godunov_kernels import godunov_plm
 
         return godunov_plm(
@@ -304,8 +368,9 @@ def advect_field(
         )
     edges = compute_edge_states(
         s_g, umac_g, dt, dx, ncell, iconserv, force_g=force_g, periodic=periodic,
+        scheme=scheme, use_forces_in_trans=use_forces_in_trans,
     )
-    return compute_fluxes_and_aofs(edges, umac, dx, iconserv, s_cc=s_cc)
+    return compute_fluxes_and_aofs(edges, umac, dx, iconserv, s_cc=s_cc, rz=rz)
 
 
 def compute_edge_states(
@@ -326,25 +391,41 @@ def compute_edge_states(
     transverse ghost row (grow_umac_transverse); force_g: optional, 1 ghost.
     Conservative form uses the flux difference d(v_mac s_hat)/dy in the
     transverse correction (plus -dt/2 s d(u_mac)/dx normal term),
-    convective form vbar * d(s_hat)/dy."""
-    _check_scheme(scheme, use_forces_in_trans)
+    convective form vbar * d(s_hat)/dy. scheme: "plm", "ppm" (the normal
+    predictor) or "bds" (ops/bds.py, whose characteristic-region averages
+    carry the transverse terms themselves)."""
+    if scheme == "bds":
+        from iamr_tpu_torch.ops.bds import bds_edge_states
+
+        return bds_edge_states(s_g, umac_grown, dt, dx, ncell, force_g=force_g,
+                               periodic=periodic)
     dim = s_g.ndim
     ng = 3
     n = tuple(ncell)
     dt = _as_dt(dt, s_g)
+    others = lambda d: [e for e in range(dim) if e != d]
 
-    slopes = [
-        _trim(slope4(s_g, d), 1, ng, dims=[e for e in range(dim) if e != d])
-        for d in range(dim)
-    ]
+    if scheme != "ppm":
+        slopes = [_trim(slope4(s_g, d), 1, ng, dims=others(d)) for d in range(dim)]
     s_1 = _trim(s_g, 1, ng)
 
     def _predict(d):
+        """Normal-predictor L/R states on the faces of the ng=1 region
+        (with use_forces_in_trans, plus the dt/2 force term)."""
         u_f = umac_grown[d]
-        m = s_1.shape[d]
-        cfl = dt / dx[d] * u_f
-        pL = _shift(s_1, d, 0, m - 1) + 0.5 * (1.0 - cfl) * _shift(slopes[d], d, 0, m - 1)
-        pR = _shift(s_1, d, 1, m - 1) - 0.5 * (1.0 + cfl) * _shift(slopes[d], d, 1, m - 1)
+        if scheme == "ppm":
+            cl = dt / dx[d] * torch.clamp(u_f, min=0.0)
+            cr = dt / dx[d] * torch.clamp(-u_f, min=0.0)
+            pL, pR = ppm_lr(_trim(s_g, 1, ng, dims=others(d)), d, cl, cr)
+        else:
+            m = s_1.shape[d]
+            cfl = dt / dx[d] * u_f
+            pL = _shift(s_1, d, 0, m - 1) + 0.5 * (1.0 - cfl) * _shift(slopes[d], d, 0, m - 1)
+            pR = _shift(s_1, d, 1, m - 1) - 0.5 * (1.0 + cfl) * _shift(slopes[d], d, 1, m - 1)
+        if use_forces_in_trans and force_g is not None:
+            mf = force_g.shape[d]
+            pL = pL + 0.5 * dt * _shift(force_g, d, 0, mf - 1)
+            pR = pR + 0.5 * dt * _shift(force_g, d, 1, mf - 1)
         return pL, pR
 
     preds = [_predict(d) for d in range(dim)]
@@ -393,7 +474,7 @@ def compute_edge_states(
             corr_L = corr_L + _shift(t, d, 0, n[d] + 1)
             corr_R = corr_R + _shift(t, d, 1, n[d] + 1)
 
-        if force_g is not None:
+        if force_g is not None and not use_forces_in_trans:
             f_real = to_real(force_g, d)
             corr_L = corr_L + 0.5 * dt * _shift(f_real, d, 0, n[d] + 1)
             corr_R = corr_R + 0.5 * dt * _shift(f_real, d, 1, n[d] + 1)
@@ -407,13 +488,17 @@ def compute_fluxes_and_aofs(edges, umac, dx: Sequence[float], iconserv: bool,
                             s_cc=None, rz=None):
     """Fluxes F_d = u_mac_d * s_edge_d and the advective tendency:
     conservative aofs = div(F); convective aofs = div(F) - s * div(u_mac).
-    Updates apply as S_new = S_old - dt * aofs."""
-    if rz is not None:
-        raise NotImplementedError("RZ advection is not ported")
+    Updates apply as S_new = S_old - dt * aofs. rz: (r_cell, r_face) of a
+    2D axisymmetric run, where div = (1/r) d(r F_r)/dr + dF_z/dz."""
     dim = len(edges)
     fluxes = tuple(umac[d] * edges[d] for d in range(dim))
 
     def _div(fs):
+        if rz is not None:
+            r_cell, r_face = rz
+            fr = r_face * fs[0]
+            out = (sl(fr, 0, 1, None) - sl(fr, 0, 0, -1)) / dx[0] / r_cell
+            return out + (sl(fs[1], 1, 1, None) - sl(fs[1], 1, 0, -1)) / dx[1]
         out = 0.0
         for d in range(dim):
             out = out + (sl(fs[d], d, 1, None) - sl(fs[d], d, 0, -1)) / dx[d]

@@ -3,8 +3,9 @@
 Solves div((1/rho)_faces grad phi) = div(u_mac) - S and corrects
 u_mac <- u_mac - (1/rho) grad phi, so div(u_mac) = S. Face coefficients are
 arithmetic averages of 1/rho. The solve is the all-periodic uniform-density
-FFT solve (spectral_beta0) or the cell multigrid (ops/mg.py); the EB, RZ
-and multi-box projections are not ported.
+FFT solve (spectral_beta0) or the cell multigrid (ops/mg.py). In RZ (2D
+axisymmetric) the coefficients and the velocities are weighted by radius.
+The EB and multi-box projections are not ported.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ def mac_project(
     bc: Optional[PoissonBC] = None,
     bvals=None,
     spectral_beta0=None,
+    rz=None,
 ):
     """Project the MAC velocities; returns (umac_corrected, phi, (res, it)).
 
@@ -63,15 +65,28 @@ def mac_project(
     Poisson solve then runs in Fourier space (solvers.spectral). Otherwise
     the cell multigrid solves -div(beta grad phi) = -div(u_mac) from phi0,
     to rtol/atol or for fixed_cycles V-cycles, and the faces of
-    non-periodic, non-outflow sides keep their velocity."""
+    non-periodic, non-outflow sides keep their velocity.
+
+    rz: (r_cell, r_face) of a 2D axisymmetric run (the reference's radMult
+    scaling): the solve is d(r b phi_r)/dr + d(r b phi_z)/dz =
+    d(r u_r)/dr + d(r u_z)/dz - r S, the correction u -= b grad phi is
+    unscaled, and the FFT solve is not used."""
     dim = rho.ndim
     if bc is None:
         bc = mac_poisson_bc(dom)
     beta = beta_from_rho(rho, dom)
-    div = mac_div(umac, dx)
-    if divu_src is not None:
-        div = div - divu_src
-    if spectral_beta0 is not None:
+    beta_op = beta
+    if rz is not None:
+        r_cell, r_face = rz
+        beta_op = (r_face * beta[0], r_cell * beta[1])
+        div = mac_div((r_face * umac[0], r_cell * umac[1]), dx)
+        if divu_src is not None:
+            div = div - r_cell * divu_src
+    else:
+        div = mac_div(umac, dx)
+        if divu_src is not None:
+            div = div - divu_src
+    if spectral_beta0 is not None and rz is None:
         phi = solve_cell_helmholtz(-div, 0.0, spectral_beta0, dx)
         corr = mg.get_fluxes(phi, beta, 1.0, dx, bc, bvals=bvals)
         umac_new = tuple(umac[d] + corr[d] for d in range(dim))
@@ -79,7 +94,7 @@ def mac_project(
 
     # the operator is (a alpha - b div beta grad): a = 0, b = 1 gives
     # -div(beta grad phi) = -div
-    phi, res, it = mg.mg_solve(-div, torch.zeros_like(rho), beta, 0.0, 1.0, dx, bc,
+    phi, res, it = mg.mg_solve(-div, torch.zeros_like(rho), beta_op, 0.0, 1.0, dx, bc,
                                phi0=phi0, bvals=bvals, rtol=rtol, atol=atol,
                                fixed_cycles=fixed_cycles)
     corr = mg.get_fluxes(phi, beta, 1.0, dx, bc, bvals=bvals)

@@ -9,8 +9,10 @@ The solve is the all-periodic uniform-density FFT solve (spectral_sigma0)
 or the nodal multigrid (ops/mg_nodal.py), warm-started from p^{n-1/2}.
 initial_velocity_project is the initial projection of driver.initialize,
 initial_pressure_project its hydrostatic start of gravity runs, and
-hydrostatic_phi_bc the Dirichlet phi of outflow faces under gravity. The
-EB, RZ and multi-box projections are not ported.
+hydrostatic_phi_bc the Dirichlet phi of outflow faces under gravity. In RZ
+(2D axisymmetric) sigma, the velocity and the divergence source are
+weighted by the cell radius and the correction stays unscaled. The EB and
+multi-box projections are not ported.
 """
 
 from __future__ import annotations
@@ -73,29 +75,39 @@ def level_project(
     phi_bc=None,
     divu_src=None,
     spectral_sigma0=None,
+    rz=None,
 ):
     """Approximate nodal projection of the provisional velocity; returns
     (vel_new, p_new, gradp_new, (res, it)). spectral_sigma0: scalar
     1/rho_half of an all-periodic uniform-density run (the FFT solve, used
-    when no Dirichlet phi_bc values are given). Otherwise the nodal
-    multigrid solves to rtol/atol (or fixed_cycles V-cycles), warm-started
-    from p_old: p^{n-1/2} solves the same equation one step earlier."""
+    when no Dirichlet phi_bc values are given and not in RZ). Otherwise the
+    nodal multigrid solves to rtol/atol (or fixed_cycles V-cycles),
+    warm-started from p_old: p^{n-1/2} solves the same equation one step
+    earlier. rz: (r_cell, r_face) of a 2D axisymmetric run."""
     dim = rho_half.ndim
     if bc is None:
         bc = nodal_bc(dom)
     sigma = 1.0 / rho_half
     vs = tuple(vel_star[d] / dt + gradp_old[d] * sigma for d in range(dim))
     # prescribed inflow normal velocity enters the divergence, scaled like vs
-    rhs = div_cell_to_node(vs, dx, bc, _inflow_vals(dom, dim, dt))
+    inflow = _inflow_vals(dom, dim, dt)
+    if rz is not None:
+        # sigma and U weighted by the cell radius (scaleVar radMult)
+        sigma_op = sigma * rz[0]
+        rhs = div_cell_to_node(tuple(rz[0] * v for v in vs), dx, bc, inflow)
+    else:
+        sigma_op = sigma
+        rhs = div_cell_to_node(vs, dx, bc, inflow)
     if divu_src is not None:
-        rhs = rhs - avg_cell_to_node(divu_src, bc) / dt
-    if spectral_sigma0 is not None and phi_bc is None:
+        src = divu_src if rz is None else rz[0] * divu_src
+        rhs = rhs - avg_cell_to_node(src, bc) / dt
+    if spectral_sigma0 is not None and phi_bc is None and rz is None:
         phi = solve_nodal_poisson(rhs, spectral_sigma0, dx)
         res, it = torch.zeros((), dtype=rho_half.dtype, device=rho_half.device), 0
     else:
         # the phi_bc lifting assumes the lifted part starts homogeneous
         phi0 = p_old if tuple(p_old.shape) == tuple(rhs.shape) and phi_bc is None else None
-        phi, res, it = nodal_solve(rhs, sigma, dx, bc, phi0=phi0, rtol=rtol, atol=atol,
+        phi, res, it = nodal_solve(rhs, sigma_op, dx, bc, phi0=phi0, rtol=rtol, atol=atol,
                                    fixed_cycles=fixed_cycles, phi_bc=phi_bc)
     gphi = grad_node_to_cell(phi, dx)
     vel_new = torch.stack([(vs[d] - sigma * gphi[d]) * dt for d in range(dim)])
@@ -112,18 +124,26 @@ def initial_velocity_project(
     rtol: float = 1e-12,
     atol: float = 1e-16,
     fixed_cycles: Optional[int] = None,
+    rz=None,
 ):
     """Make the initial velocity divergence-free (initialVelocityProject):
     solve L(phi) = D(U) with sigma = 1/rho, U <- U - sigma G(phi); the
-    initial pressure stays zero. Returns (vel_new, (res, it))."""
+    initial pressure stays zero. rz: (r_cell, r_face) of a 2D axisymmetric
+    run, whose sigma and U are weighted by the cell radius. divu_src: a
+    node array, subtracted as it is. Returns (vel_new, (res, it))."""
     dim = rho.ndim
     bc = nodal_bc(dom)
     sigma = 1.0 / rho
     u = tuple(vel[d] for d in range(dim))
-    rhs = div_cell_to_node(u, dx, bc, _inflow_vals(dom, dim))
+    if rz is not None:
+        sigma_op = sigma * rz[0]
+        rhs = div_cell_to_node(tuple(rz[0] * ud for ud in u), dx, bc, _inflow_vals(dom, dim))
+    else:
+        sigma_op = sigma
+        rhs = div_cell_to_node(u, dx, bc, _inflow_vals(dom, dim))
     if divu_src is not None:
         rhs = rhs - divu_src
-    phi, res, it = nodal_solve(rhs, sigma, dx, bc, rtol=rtol, atol=atol,
+    phi, res, it = nodal_solve(rhs, sigma_op, dx, bc, rtol=rtol, atol=atol,
                                fixed_cycles=fixed_cycles)
     gphi = grad_node_to_cell(phi, dx)
     return torch.stack([u[d] - sigma * gphi[d] for d in range(dim)]), (res, it)

@@ -1,12 +1,13 @@
 """The PyTorch port imports neither JAX nor the JAX package: every
 iamr_tpu_torch module (the output modules io.*, ns.derive, plugins,
-utils.fileio and the __main__ of `python -m iamr_tpu_torch` among them), and
+utils.fileio, the __main__ of `python -m iamr_tpu_torch`, and ops.bds,
+ns.les and solvers.tensor among them), and
 chip_smoke.py, load in a fresh interpreter with no 'jax', 'jax.*',
 'iamr_tpu' or 'iamr_tpu.*' module in sys.modules (the GPU machine has no
 JAX installed; the port keeps its own copies of the plain Python modules it
 needs). Those copies (config.parmparse, core.geometry,
 core.bc) parse and build examples/inputs.3d.hit_forced, the 2D lid-driven
-cavity and walled, inflow, outflow and thermal inputs as the JAX package's
+cavity, HotSpot-RZ and walled, inflow, outflow and thermal inputs as the JAX package's
 do, down to the velocity, scalar and temperature BC records. chip_smoke.py
 also refuses to run without a CUDA device."""
 
@@ -37,9 +38,10 @@ import iamr_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(iamr_tpu_torch.__path__, "iamr_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 42, names
+assert len(names) >= 45, names
 for name in ("ns.checks", "ns.derive", "plugins", "io.vismf", "io.plotfile", "io.checkpoint",
-             "io.amrex_chk", "utils.fileio", "__main__"):
+             "io.amrex_chk", "utils.fileio", "__main__", "ops.bds", "ns.les",
+             "solvers.tensor"):
     assert "iamr_tpu_torch." + name in names, (name, names)
 """ + FOREIGN
 
@@ -111,7 +113,8 @@ zhi.type = pressure_outflow
 """
 
 
-@pytest.mark.parametrize("source", ["inputs.2d.lid_driven_cavity", "walled"])
+@pytest.mark.parametrize("source", ["inputs.2d.lid_driven_cavity", "inputs.2d.hotspot_rz",
+                                    "walled"])
 def test_port_copies_build_the_same_walled_config(source):
     if source == "walled":
         text = WALLED
@@ -123,6 +126,9 @@ def test_port_copies_build_the_same_walled_config(source):
     assert dataclasses.asdict(jcfg.geom) == dataclasses.asdict(tcfg.geom)
     assert dataclasses.asdict(jcfg.dom) == dataclasses.asdict(tcfg.dom)
     assert (jcfg.ntrac, jcfg.do_temp, jcfg.dim) == (tcfg.ntrac, tcfg.do_temp, tcfg.dim)
+    keys = ("do_les", "les_model", "smago_cs", "sigma_cs", "advection_scheme",
+            "use_forces_in_trans", "vel_visc_coef")
+    assert [getattr(jcfg, k) for k in keys] == [getattr(tcfg, k) for k in keys]
     for comp in range(jcfg.dim):
         jr = jbc.velocity_bcrec(jcfg.dom.phys_lo, jcfg.dom.phys_hi, comp)
         tr = tbc.velocity_bcrec(tcfg.dom.phys_lo, tcfg.dom.phys_hi, comp)
