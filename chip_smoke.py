@@ -130,7 +130,27 @@ Phases (any failure raises and exits non-zero):
      HIT 16^3 LES with each model, RT 16x16x32 with PPM, BDS and
      use_forces_in_trans, RT 2D 32x64 with BDS, HotSpot-RZ 32x64; an
      unknown ns.advection_scheme equal to Godunov_PLM bit for bit on each
-     device.
+     device;
+ 21. EB at full width: the 3D flow past a cylinder
+     (examples/inputs.3d.flow_past_cylinder) at 512x128x128 f32: the
+     cut-cell geometry built on the card (seconds, peak memory),
+     driver.initialize, fixed_mg_cycles=4, 1 warm-up + 3 timed steps; K1
+     once a step and K2 never (the plain Godunov with the near-wall slopes,
+     as the JAX package gates its kernel), the MG calls by the formula
+     (4 CN solves: 3 velocity components and the tracer), no host sync, a
+     profiled step whose launches equal the counted ones, the covered
+     cells' velocity exactly 0, the cut-cell MAC divergence
+     max|sum_d d(afrac u)/dx_d - vfrac S| fluid dx/umax < 1e-2, device ms,
+     s/step and peak memory; K1 bit for bit and the cell and nodal kernels
+     to MG_TOL against their plain versions on the step's captured calls
+     (alpha = covered, beta times afrac; sigma times vfrac), each timed;
+     then `python -m iamr_tpu_torch examples/inputs.3d.flow_past_cylinder
+     amr.n_cell="128 32 32" max_step=2`, finished after phase 22, whose
+     kernel calls must name K1 and the MG kernels and not K2;
+ 22. EB, GPU (kernels) vs CPU (plain), f64, initialize + 2 steps to 1e-10:
+     the 2D file at 32x16 and the 3D file at 16x8x8 (the cylinder widened
+     so that covered cells exist), StateRedist and FluxRedist, fixed and
+     tolerance mode; the geometry built on each device, equal.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
@@ -1166,13 +1186,19 @@ def inputs_config(text, dev):
     return config_from_inputs(ParmParse.from_string(text), device=dev)
 
 
-def example_config(name, dev, *overrides):
-    """The config of examples/<name> with `key=value` overrides."""
+def example_pp(name, *overrides):
+    """The inputs of examples/<name> with `key=value` overrides."""
     from iamr_tpu_torch.config.parmparse import ParmParse
-    from iamr_tpu_torch.ns.state import config_from_inputs
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", name)
-    return config_from_inputs(ParmParse.from_file(path, overrides), device=dev)
+    return ParmParse.from_file(path, overrides)
+
+
+def example_config(name, dev, *overrides):
+    """The config of examples/<name> with `key=value` overrides."""
+    from iamr_tpu_torch.ns.state import config_from_inputs
+
+    return config_from_inputs(example_pp(name, *overrides), device=dev)
 
 
 def rt_config(cells, dtype, dev, *overrides):
@@ -1216,20 +1242,23 @@ def capture_calls(fn, targets):
     return kept
 
 
-def step_kernel_inputs(cfg, state, cycles, gk, mk):
-    """The kernels' inputs of one fixed-cycle step from `state`: K1's, K2's,
-    the finest level's first MAC (a = 0) and CN (a != 0) cell calls with
-    sweeps and the residual, and the finest level's first nodal call with
-    sweeps and the residual (the projection)."""
+def step_kernel_inputs(cfg, state, cycles, gk, mk, eb=None):
+    """The kernels' inputs of one fixed-cycle step from `state` (with the
+    EB geometry eb): K1's, K2's, the finest level's first MAC and CN cell
+    calls with sweeps and the residual, and the finest level's first nodal
+    call with sweeps and the residual (the projection). The MAC solve's
+    calls have a = 0, or under EB a = b = 1 (alpha the covered mask); the
+    CN solves' a = 1 and b = theta or theta dt."""
     from iamr_tpu_torch.ns import advance as adv
 
     fine = tuple(cfg.geom.ncell)
     nodes = tuple(x + 1 for x in fine)
 
     def cell_key(args, kw):
-        phi, a, nsweeps, want = args[0], args[4], args[9], args[10]
+        phi, a, b, nsweeps, want = args[0], args[4], args[5], args[9], args[10]
         if tuple(phi.shape) == fine and nsweeps > 0 and want:
-            return "cell_mac" if a == 0.0 else "cell_cn"
+            mac = a == 0.0 or (eb is not None and not torch.is_tensor(b) and b == 1.0)
+            return "cell_mac" if mac else "cell_cn"
         return None
 
     def nodal_key(args, kw):
@@ -1237,7 +1266,7 @@ def step_kernel_inputs(cfg, state, cycles, gk, mk):
             return "nodal"
         return None
 
-    return capture_calls(lambda: adv.advance(state, cfg, cycles), [
+    return capture_calls(lambda: adv.advance(state, cfg, cycles, eb=eb), [
         (gk, "extrap_plm", lambda a, k: "extrap_plm"),
         (adv, "godunov_plm_multi", lambda a, k: "godunov_plm_multi"),
         (mk, "cell_smooth", cell_key),
@@ -1410,23 +1439,23 @@ def phase_rt3d_entry(dev, cells=(128, 128, 256)):
         f"{float(state.time):.6e}, max|u| {float(state.vel.abs().max()):.6e}")
 
 
-def gpu_vs_cpu(label, cfg, dev, cycles, steps=2, perturb=1e-3):
+def gpu_vs_cpu(label, cfg, dev, cycles, steps=2, perturb=1e-3, ebs=(None, None)):
     """initialize (no pressure iterations) on both devices, compared; the
     CPU state with a seeded velocity perturbation on both; `steps` steps of
     make_step on both, compared: max|GPU - CPU| / max|CPU| <= 1e-10 on
-    every field."""
+    every field. ebs: the EB geometry on the CPU and on the card."""
     from iamr_tpu_torch.ns import driver
     from iamr_tpu_torch.ns.advance import make_step
 
     cpu = torch.device("cpu")
-    init = [driver.initialize(cfg, fixed_mg_cycles=cycles, device=w, init_iters=0)
-            for w in (cpu, dev)]
+    init = [driver.initialize(cfg, fixed_mg_cycles=cycles, device=w, init_iters=0, eb=eb)
+            for w, eb in zip((cpu, dev), ebs)]
     noise = perturb * np.random.RandomState(3).randn(*init[0].vel.shape)
     st = init[0]._replace(vel=init[0].vel + torch.as_tensor(noise))
     states = [st, type(st)(*[None if t is None else t.to(dev) for t in st])]
-    step = make_step(cfg, cycles)
+    steps_fn = [make_step(cfg, cycles, eb=eb) for eb in ebs]
     for _ in range(steps):
-        states = [step(v) for v in states]
+        states = [f(v) for f, v in zip(steps_fn, states)]
     worst = 0.0
     for stage, pair in (("init", init), (f"{steps} steps", states)):
         for k in pair[0]._fields:
@@ -1930,6 +1959,173 @@ def phase_gpu_cpu_variants(dev):
         log(f"  ns.advection_scheme=Godunov_Fancy equals Godunov_PLM bit for bit on {where}")
     return max(out.values())
 
+FPC3D = "inputs.3d.flow_past_cylinder"
+
+
+def eb_mac_divergence(cfg, state, umac, eb):
+    """max|sum_d d(afrac u)/dx_d - vfrac S| over the fluid cells, dx / max|u|,
+    of the projected MAC velocities (S = 0: no thermal source)."""
+    from iamr_tpu_torch.ns.checks import check_div_cond
+
+    scale = max(float(state.vel.abs().max()), 1e-30) / cfg.geom.dx[0]
+    res = float(check_div_cond(umac, cfg.geom.dx, eb=eb)) / scale
+    log(f"  cut-cell MAC divergence: max|div - vfrac S| fluid dx/umax {res:.6e}")
+    return res
+
+
+def phase_eb(dev, gk, mk, card, cells=(512, 128, 128), steps=3, cycles=4):
+    """Returns the metrics and the started CLI run (finish_eb_cli ends it)."""
+    import tempfile
+
+    from iamr_tpu_torch.eb.geom import eb_from_inputs
+    from iamr_tpu_torch.ns import driver
+    from iamr_tpu_torch.ns.advance import advance, make_step
+    from iamr_tpu_torch.ns.state import config_from_inputs
+
+    log(f"phase 21: EB, the flow past a cylinder {cells} f32 (examples/{FPC3D}), "
+        f"fixed_mg_cycles={cycles}, the geometry, driver.initialize + 1 warm-up + {steps} "
+        "timed steps")
+    pp = example_pp(FPC3D, "amr.n_cell=" + " ".join(map(str, cells)), "ns.dtype=float32")
+    cfg = config_from_inputs(pp, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    eb = eb_from_inputs(pp, cfg.geom, dtype=cfg.dtype, device=dev)
+    torch.cuda.synchronize()
+    geom_s = time.perf_counter() - t0
+    geom_gib = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    ncov, ncut = (int(x) for x in torch.stack([
+        eb.covered.sum(), ((eb.vfrac > 0) & (eb.vfrac < 1)).sum()]).tolist())
+    log(f"  geometry (ss = 8, {int(np.prod(cells)) * 512:.3e} samples): {geom_s:.3f} s, peak "
+        f"{geom_gib:.3f} GiB above the {base / 2**30:.3f} GiB held before; {ncov} covered, "
+        f"{ncut} cut cells ({card})")
+    if not (ncov > 0 and ncut > 0):
+        raise AssertionError("the cylinder covers or cuts no cell")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = driver.initialize(cfg, fixed_mg_cycles=cycles, device=dev, eb=eb)
+    torch.cuda.synchronize()
+    log(f"  initialize {time.perf_counter() - t0:.3f} s (EB initial projection, "
+        f"{cfg.init_iter} pressure iteration), dt {float(state.dt):.6e}")
+    step = make_step(cfg, cycles, eb=eb)
+    want = dict(expected_mg_launches(cells, cycles, cn_solves(cfg)), extrap_plm=1,
+                godunov_plm_multi=0)
+    state, s_step, per_step = run_steps(step, state, steps, gk, mk)
+    log(f"  launches per step: {per_step[-1]} (expected {want}; {cn_solves(cfg)} CN solves)")
+    if any(c != want for c in per_step):
+        raise AssertionError(f"launch counts per step {per_step} != {want}")
+    check_state(state)
+    ncells = int(np.prod(cells))
+    log(f"  {s_step:.6f} s/step, {ncells / s_step:.6e} cells/s on {card}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log("  one more step under set_sync_debug_mode('error'): no host sync")
+    rows = profile_step(lambda: step(state), card, top=15)
+    dev_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in rows) / 1e3
+    check_profiled_launches(rows, want)
+    # the steps' peak: the checks below call advance alone, which forms
+    # StateRedist's geometry terms again beside those the step holds
+    peak = torch.cuda.max_memory_allocated(dev)
+    covered_u = float(torch.where(eb.covered > 0, state.vel.abs(), 0.0).max())
+    log(f"  max|u| in covered cells {covered_u!r}")
+    if covered_u != 0.0:
+        raise AssertionError(f"covered cells carry velocity {covered_u}")
+    _, umac = advance(state, cfg, cycles, return_umac=True, eb=eb)
+    mac_div = eb_mac_divergence(cfg, state, umac, eb)
+    if not mac_div < 1e-2:
+        raise AssertionError(f"cut-cell MAC divergence after {cycles} V-cycles: {mac_div}")
+    log(f"  max_memory_allocated {peak / 2**30:.3f} GiB, max|u| "
+        f"{float(state.vel.abs().max()):.6e}, time {float(state.time):.6e}")
+    log("phase 21: K1 and the MG kernels vs plain on the EB step's captured calls")
+    kept = step_kernel_inputs(cfg, state, cycles, gk, mk, eb=eb)
+    missing = {"extrap_plm", "cell_mac", "cell_cn", "nodal"} - set(kept)
+    if missing or "godunov_plm_multi" in kept:
+        raise AssertionError(f"the EB step's calls: missing {missing}, K2 "
+                             f"{'godunov_plm_multi' in kept}")
+    args, kw = kept["extrap_plm"]
+    got, ref = gk.extrap_plm(*args, **kw), gk.extrap_plm_ref(*args, **kw)
+    check_f32(f"extrap_plm EB {cells}", list(zip(got, ref)), gk)
+    if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+        raise AssertionError("extrap_plm: not bit for bit on the EB step's inputs")
+    k_ms, p_ms = timed_pair(lambda: gk.extrap_plm(*args, **kw),
+                            lambda: gk.extrap_plm_ref(*args, **kw))
+    log(f"  extrap_plm: {k_ms:.4f} ms, plain {p_ms:.4f} ms, bit for bit ({card})")
+    alpha_mac = kept["cell_mac"][0][2]
+    log(f"  the MAC call: a = {kept['cell_mac'][0][4]}, alpha in "
+        f"[{float(alpha_mac.min())}, {float(alpha_mac.max())}] (the covered mask), "
+        f"{int((kept['cell_mac'][0][3][0] == 0).sum())} x-faces with beta = 0")
+    out = {f"eb_{k}_ms": v[1] for k, v in mg_pairs_on_step("EB", kept, mk, torch.float32,
+                                                             card).items()}
+    out["eb_extrap_plm_ms"] = k_ms
+    log(f"phase 21: python -m iamr_tpu_torch examples/{FPC3D} amr.n_cell=\"128 32 32\" "
+        "max_step=2, started (finished after phase 22)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eb_")
+    inputs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", FPC3D)
+    run = CliRun(inputs, ["amr.n_cell=128 32 32", "max_step=2"], os.path.join(tmp, "eb"),
+                 "flow past a cylinder 128x32x32")
+    return {"eb_geometry_s": geom_s, "eb_geometry_gib": geom_gib, "eb_s_per_step": s_step,
+            "eb_device_ms": dev_ms, "eb_max_mem_gib": peak / 2**30,
+            "eb_mac_div_over_umax_dx": mac_div, **out}, (run, tmp)
+
+
+def finish_eb_cli(started, card):
+    """The EB CLI run of phase 21: its kernel calls must name K1 and the MG
+    kernels, and not K2."""
+    import shutil
+
+    run, tmp = started
+    try:
+        _, secs, calls = run.finish(card, " (beside phase 22)")
+        if calls["godunov_plm_multi"] or min(calls["extrap_plm"], calls["mg_cell_gsrb"],
+                                             calls["mg_nodal_jacobi"]) < 1:
+            raise AssertionError(f"EB CLI kernel calls {calls}")
+    finally:
+        run.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"eb_cli_s": secs}
+
+
+# the cylinder (and the tracer blob) widened so that covered cells (and a
+# tracer) exist at the GPU-vs-CPU sizes, as in tests/test_torch_eb_steps.py
+EB_SMALL = {2: ("amr.n_cell=32 16", "eb2.sphere_radius=0.2", "prob.blob_radius=0.2"),
+            3: ("amr.n_cell=16 8 8", "eb2.cylinder_radius=0.3", "prob.blob_radius=0.2")}
+
+
+def phase_gpu_cpu_eb(dev):
+    from iamr_tpu_torch.eb.geom import eb_from_inputs
+    from iamr_tpu_torch.ns.state import config_from_inputs
+
+    log("phase 22: EB, GPU (kernels) vs CPU (plain), f64, initialize + 2 steps")
+    out = {}
+    for dim in (2, 3):
+        for rtype in ("StateRedist", "FluxRedist"):
+            pp = example_pp(f"inputs.{dim}d.flow_past_cylinder", *EB_SMALL[dim],
+                            "ns.dtype=float64", f"ns.redistribution_type={rtype}")
+            cfg = config_from_inputs(pp, device=dev)
+            ebs = [eb_from_inputs(pp, cfg.geom, dtype=cfg.dtype, device=w)
+                   for w in (torch.device("cpu"), dev)]
+            for k, a in ebs[0]._asdict().items():
+                b = getattr(ebs[1], k)
+                for x, y in zip(a if isinstance(a, tuple) else (a,),
+                                b if isinstance(b, tuple) else (b,)):
+                    # aeb_vol takes a square root, which torch rounds
+                    # correctly on the card and within an ulp on the CPU
+                    same = (rel_err(y.cpu(), x) <= 1e-14 if k == "aeb_vol"
+                            else torch.equal(x, y.cpu()))
+                    if not same:
+                        raise AssertionError(f"{dim}D geometry: the card's {k} differs from "
+                                             "the CPU's")
+            for cycles in (4, None):
+                out[f"{dim}d_{rtype}_{cycles}"] = gpu_vs_cpu(
+                    f"flow past a cylinder {dim}D {cfg.geom.ncell} {rtype}", cfg, dev,
+                    cycles, ebs=ebs)
+    log("  the geometry built on the card equals the CPU's, every field (aeb_vol to 1e-14)")
+    return max(out.values())
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1989,8 +2185,19 @@ def main() -> int:
     rz_metrics, rz_cli = timed(phase_rz, dev, gk, mk, smi)
     mg_metrics.update(rz_metrics)
     # the RZ CLI run shares the card with phase 20, which times nothing
-    mg_metrics["variants_gpu_cpu_rel"] = timed(phase_gpu_cpu_variants, dev)
-    mg_metrics.update(timed(finish_rz_cli, rz_cli, smi))
+    try:
+        mg_metrics["variants_gpu_cpu_rel"] = timed(phase_gpu_cpu_variants, dev)
+        mg_metrics.update(timed(finish_rz_cli, rz_cli, smi))
+    finally:
+        rz_cli[0].kill()
+    eb_metrics, eb_cli = timed(phase_eb, dev, gk, mk, smi)
+    mg_metrics.update(eb_metrics)
+    # the EB CLI run shares the card with phase 22, which times nothing
+    try:
+        mg_metrics["eb_gpu_cpu_rel"] = timed(phase_gpu_cpu_eb, dev)
+        mg_metrics.update(timed(finish_eb_cli, eb_cli, smi))
+    finally:
+        eb_cli[0].kill()
     log(f"metrics ({smi}): {json.dumps(mg_metrics)}")
     log(f"total {time.perf_counter() - t_start:.1f} s after the interpreter started")
 

@@ -18,17 +18,26 @@ NavierStokes::advance (Almgren-Bell-Colella-Howell-Welcome JCP 142, 1998):
   6. nodal projection -> U^{n+1}, p^{n+1/2}, Gp (outflow faces under
      gravity hold the hydrostatic phi)
 
+With embedded boundaries (eb, the level's eb/geom.py::EBData) the step
+follows the reference's EB path: near-wall slopes in the plain Godunov
+advection (no K2, as the JAX package gates its kernel), the advective
+tendencies redistributed (eb/redist.py, ns.redistribution_type), the
+projections and the CN solves on area- and volume-fraction-weighted
+operators with an implicit no-slip wall drag, and the covered cells
+holding the body state (velocity 0, their old density and scalars).
+
 Ported path: 2D and 3D, single level, periodic, walled, inflow and outflow
 sides, variable density, the advection schemes Godunov_PLM, Godunov_PPM
 and BDS (any other name runs as PLM, as in the JAX package; the MAC
 predictor stays PLM under BDS), godunov.use_forces_in_trans, do_temp,
-do_mom_diff, do_denminmax, do_mac_proj, LES (Smagorinsky, Sigma in 3D)
-and RZ (2D axisymmetric, without velocity viscosity or LES, as the
-reference requires), with either the spectral (FFT) solvers of an
-all-periodic uniform-density run (not under LES or RZ) or the multigrid
-solvers (cell red-black Gauss-Seidel, FEM nodal Jacobi), to tolerance or
-for a fixed number of V-cycles. EB and multi-box levels raise
-NotImplementedError. The step runs eagerly on the tensors' device; in
+do_mom_diff, do_denminmax, do_mac_proj, LES (Smagorinsky, Sigma in 3D),
+RZ (2D axisymmetric, without velocity viscosity or LES, as the reference
+requires) and EB (not with RZ or use_forces_in_trans, as in the JAX
+package), with either the spectral (FFT) solvers of an all-periodic
+uniform-density run (not under LES, RZ or EB) or the multigrid solvers
+(cell red-black Gauss-Seidel, FEM nodal Jacobi), to tolerance or for a
+fixed number of V-cycles. Multi-box levels are not ported. The step runs
+eagerly on the tensors' device; in
 fixed-cycle or spectral mode it reads nothing back to the host (tolerance
 mode reads one residual norm per V-cycle; the Sigma model's eigenvalue
 solve reads its status).
@@ -41,6 +50,7 @@ import itertools
 import torch
 
 from iamr_tpu_torch import plugins
+from iamr_tpu_torch.eb.redist import eb_aofs, set_body_state, state_redist_geometry
 from iamr_tpu_torch.ns.bcprovider import PhysBCProvider
 from iamr_tpu_torch.ns.forcing_hit import HITForcing
 from iamr_tpu_torch.ns.les import eddy_viscosity_faces, tensor_cross_terms
@@ -167,11 +177,14 @@ def rz_radii(cfg: NSConfig, dtype, device):
     return r_cell.to(dtype)[:, None], r_face.to(dtype)[:, None]
 
 
-def _check_rz(cfg: NSConfig):
-    """The reference forbids RZ with viscosity (NavierStokesBase.cpp:246-256)."""
+def _check_rz(cfg: NSConfig, eb=None):
+    """The reference forbids RZ with viscosity (NavierStokesBase.cpp:246-256);
+    RZ with EB is not supported, as in the JAX package."""
     if cfg.geom.coord_sys == 1 and (cfg.vel_visc_coef > 0.0 or cfg.do_les):
         raise NotImplementedError("RZ with viscosity is not supported "
                                   "(matches the reference restriction)")
+    if cfg.geom.coord_sys == 1 and eb is not None:
+        raise NotImplementedError("RZ + EB not supported")
 
 
 def _thermal_divu(cfg: NSConfig, bcp, temp, rho):
@@ -208,18 +221,27 @@ def advance(
     return_umac: bool = False,
     bcp=None,
     spectral: bool = False,
+    eb=None,
+    eb_redist=None,
 ):
     """One timestep: consumes state^n, returns state^{n+1} (and the
-    projected MAC velocities with return_umac).
+    projected MAC velocities with return_umac). eb: the level's EBData
+    (module docstring); use_forces_in_trans with it raises, as the
+    reference aborts. eb_redist: redist_geometry(cfg, eb) where the caller
+    keeps it across steps (formed here when not given).
 
     spectral: every implicit solve (MAC and nodal projection, CN diffusion)
     runs in Fourier space; the caller decides eligibility beforehand
     (solvers.spectral.spectral_eligible), and the flag is turned off here
-    under LES, RZ and a side that is not periodic. Otherwise the solves are
+    under LES, RZ, EB and a side that is not periodic. Otherwise the solves are
     multigrid: to the config's tolerances, or with fixed_mg_cycles
     V-cycles for the projections and max(1, fixed_mg_cycles // 4) for the
     diffusion solves (strongly diagonally dominant at CFL-limited dt)."""
-    _check_rz(cfg)
+    _check_rz(cfg, eb)
+    if eb is not None and cfg.use_forces_in_trans:
+        # the reference aborts (NavierStokesBase.cpp:566-567)
+        raise NotImplementedError("use_forces_in_trans not implemented within EB Godunov. "
+                                  "Set godunov.use_forces_in_trans=0.")
     if bcp is None:
         bcp = PhysBCProvider(cfg)
     dim = cfg.dim
@@ -230,7 +252,9 @@ def advance(
     recs = [bcp.vel_bcrec(c) for c in range(dim)]
     periodic = tuple(cfg.geom.periodic)
     # the FFT solvers need all-periodic Cartesian constant-viscosity runs
-    spectral = spectral and cfg.geom.coord_sys == 0 and not cfg.do_les and all(periodic)
+    # without EB
+    spectral = (spectral and eb is None and cfg.geom.coord_sys == 0 and not cfg.do_les
+                and all(periodic))
     scheme = SCHEMES.get(cfg.advection_scheme, "plm")
     # BDS advects the fields; the MAC predictor stays Godunov
     mac_scheme = "plm" if scheme == "bds" else scheme
@@ -244,24 +268,37 @@ def advance(
     viscous = cfg.vel_visc_coef > 0.0 or cfg.do_les
     diff_cycles = None if fixed_mg_cycles is None else max(1, fixed_mg_cycles // 4)
     mom_diff = cfg.do_mom_diff
+    if eb is not None:
+        # EB: face coefficients times the area fractions, the wall drag
+        # coefficient mu A_eb / (V d) and vfrac kept off zero
+        ebmul = lambda fs: tuple(f * af for f, af in zip(fs, eb.afrac))
+        drag_v = cfg.vel_visc_coef * eb.aeb_vol / eb.d_eb
+        vfs = torch.clamp(eb.vfrac, min=1e-12)
 
     # --- 1. predict MAC velocities -------------------------------------
     if viscous and cfg.be_cn_theta != 1.0:
+        mf0 = mf if eb is None else ebmul(mf)
         visc = torch.stack([
             diff.visc_terms_component(
-                vel[c], mf, dx, recs[c],
+                vel[c], mf0, dx, recs[c],
                 poisson_bc=bcp.vel_diff_bc(c)[0],
                 poisson_bvals=bcp.vel_diff_bc(c)[1],
             )
             for c in range(dim)
         ])
-        if cfg.do_les:
-            # the variable viscosity's tensor cross terms
+        if eb is not None:
+            # the volume-weighted term per volume, less the explicit wall drag
+            visc = torch.stack([eb.fluid * (visc[c] / vfs - drag_v * vel[c])
+                                for c in range(dim)])
+        elif cfg.do_les:
+            # the variable viscosity's tensor cross terms (not under EB)
             visc = visc + tensor_cross_terms(cfg, bcp, vel, mf)
     else:
         visc = torch.zeros_like(vel)
     tf = get_force(cfg, rho, t_half, hit)
     forcing = (tf + visc - gradp) / rho
+    if eb is not None:
+        forcing = forcing * eb.fluid
     vel_g = bcp.fill_vel(vel, 3)
     force_g = bcp.fill_force(forcing)
     bcvals_lo = tuple(bcp.vel_bcvals(c)[0] for c in range(dim))
@@ -282,7 +319,7 @@ def advance(
         umac, _, _ = mac_project(
             umac, rho, cfg.dom, dx, divu_src=mac_divu, rtol=cfg.mac_tol,
             atol=cfg.mac_abs_tol, fixed_cycles=fixed_mg_cycles, bc=mac_bc, bvals=mac_bvals,
-            spectral_beta0=(1.0 / invariant_mean(rho)) if spectral else None, rz=rz,
+            spectral_beta0=(1.0 / invariant_mean(rho)) if spectral else None, rz=rz, eb=eb,
         )
     # (ns.do_mac_proj = 0, a debugging switch: advect with the predicted
     # MAC velocities)
@@ -300,7 +337,7 @@ def advance(
     if cfg.do_temp:
         fields.append((bcp.fill_temp(state.temp, 3), False, None))
 
-    if dim == 3 and scheme == "plm" and rz is None and not uft:
+    if dim == 3 and scheme == "plm" and rz is None and eb is None and not uft:
         # all fields in one multi-field pass (kernel K2 on CUDA tensors)
         flist = [f for (_, _, f) in fields if f is not None]
         rows, k = [], 0
@@ -313,40 +350,62 @@ def advance(
             periodic=periodic,
         )
     else:
-        # 2D, PPM, BDS, RZ and use_forces_in_trans have no Godunov kernel
-        # (nor has the JAX package): the plain functions, one field at a
-        # time, on every device
+        # 2D, PPM, BDS, RZ, EB and use_forces_in_trans have no Godunov
+        # kernel (nor has the JAX package): the plain functions, one field
+        # at a time, on every device
         inner = (slice(3, -3),) * dim
         adv = [
             advect_field(s_g, umac, umac_g, dt, dx, cfg.geom.ncell, icons,
                          s_cc=None if icons else s_g[inner], force_g=fg,
-                         periodic=periodic, scheme=scheme, rz=rz,
+                         periodic=periodic, scheme=scheme, rz=rz, eb=eb,
                          use_forces_in_trans=uft)
             for (s_g, icons, fg) in fields
         ]
+    aofs = [a for _, a in adv]
+    if eb is not None:
+        # the cut-cell tendencies, redistributed (ns.redistribution_type)
+        s_ccs = [rho * vel[c] if mom_diff else vel[c] for c in range(dim)] + [rho] \
+            + [trac[t] for t in range(cfg.ntrac)] + ([state.temp] if cfg.do_temp else [])
+        if eb_redist is None:
+            eb_redist = redist_geometry(cfg, eb)
+        aofs = [eb_aofs(fl, umac, eb, dx, icons, s_cc=s_cc, periodic=periodic,
+                        rtype=cfg.redist_type, dt=dt, rg=eb_redist)
+                for (fl, _), (_, icons, _), s_cc in zip(adv, fields, s_ccs)]
 
     # --- 3. velocity advection (convective, or rho U conservative) -------
-    aofs_vel = torch.stack([adv[c][1] for c in range(dim)])
+    aofs_vel = torch.stack(aofs[:dim])
 
     # --- 4. scalar advection + updates ----------------------------------
-    rho_new = rho - dt * adv[dim][1]
+    rho_new = rho - dt * aofs[dim]
     if cfg.do_denminmax:
         rho_new = _scal_min_max(rho_g, rho_new)
+    if eb is not None:
+        # covered cells keep their density
+        rho_new = set_body_state(rho_new, eb) + eb.covered * rho
     rho_half = 0.5 * (rho + rho_new)
 
     trac_new = []
     for t in range(cfg.ntrac):
         s = trac[t]
-        s_star = s - dt * adv[dim + 1 + t][1]
+        s_star = s - dt * aofs[dim + 1 + t]
         coef = cfg.scal_diff_coefs[t] if t < len(cfg.scal_diff_coefs) else 0.0
         if coef > 0.0:
             sbc, sbv = bcp.scal_diff_bc(1 + t)
+            bcoef = beta_faces(cfg, coef, dev)
+            s_in, s_old, a_new, a_old = s_star, s, rho_new, rho
+            if eb is not None:
+                # the volume-weighted operator; no flux through the wall
+                bcoef = ebmul(bcoef)
+                s_in, s_old = eb.fluid * s_star, eb.fluid * s
+                a_new, a_old = eb.vfrac * rho_new + eb.covered, eb.vfrac * rho + eb.covered
             s_star, _ = diff.diffuse_scalar(
-                s_star, s, rho_new, rho, beta_faces(cfg, coef, dev), dt, dx,
-                bcp._scal_rec, theta=cfg.be_cn_theta, rtol=cfg.visc_tol,
-                fixed_cycles=diff_cycles, poisson_bc=sbc, poisson_bvals=sbv,
-                spectral=(invariant_mean(rho_new), coef) if spectral else None,
+                s_in, s_old, a_new, a_old, bcoef, dt, dx, bcp._scal_rec,
+                theta=cfg.be_cn_theta, rtol=cfg.visc_tol, fixed_cycles=diff_cycles,
+                poisson_bc=sbc, poisson_bvals=sbv,
+                spectral=(invariant_mean(a_new), coef) if spectral else None,
             )
+        if eb is not None:
+            s_star = eb.fluid * s_star + eb.covered * s
         trac_new.append(s_star)
     trac_new = torch.stack(trac_new)
 
@@ -354,16 +413,22 @@ def advance(
     # div(lambda grad T) with cp folded into temp_cond_coef -----------------
     temp_new = state.temp
     if cfg.do_temp:
-        temp_new = state.temp - dt * adv[dim + 1 + cfg.ntrac][1]
+        temp_new = state.temp - dt * aofs[dim + 1 + cfg.ntrac]
         if cfg.temp_cond_coef > 0.0:
             tbc, tbv = bcp.temp_diff_bc()
+            lamf = beta_faces(cfg, cfg.temp_cond_coef, dev)
+            a_new, a_old = rho_new, rho
+            if eb is not None:
+                lamf = ebmul(lamf)
+                a_new, a_old = eb.vfrac * rho_new + eb.covered, eb.vfrac * rho + eb.covered
             temp_new, _ = diff.diffuse_scalar(
-                temp_new, state.temp, rho_new, rho,
-                beta_faces(cfg, cfg.temp_cond_coef, dev), dt, dx, bcp._temp_rec,
+                temp_new, state.temp, a_new, a_old, lamf, dt, dx, bcp._temp_rec,
                 theta=cfg.be_cn_theta, rtol=cfg.visc_tol, fixed_cycles=diff_cycles,
                 poisson_bc=tbc, poisson_bvals=tbv,
-                spectral=(invariant_mean(rho_new), cfg.temp_cond_coef) if spectral else None,
+                spectral=(invariant_mean(a_new), cfg.temp_cond_coef) if spectral else None,
             )
+        if eb is not None:
+            temp_new = eb.fluid * temp_new + eb.covered * state.temp
 
     # --- 5. velocity update + CN viscous solve ---------------------------
     tf_half = get_force(cfg, rho_half, t_half, hit)
@@ -379,13 +444,34 @@ def advance(
             vel[c] - dt * aofs_vel[c] + dt * (tf_half[c] - gradp[c]) / rho_half
             for c in range(dim)
         ])
-    if cfg.do_les:
+    if eb is not None:
+        vel_star = vel_star * eb.fluid
+    if cfg.do_les and eb is None:
         # variable viscosity: the implicit tensor solve, cross terms inside
         # the CN operator by a segregated outer iteration
         vel_star = diffuse_tensor_velocity(
             cfg, bcp, vel_star, vel, rho_half, mf, dt, cfg.be_cn_theta, rtol=cfg.visc_tol,
             fixed_cycles=diff_cycles,
         )
+    elif viscous and eb is not None:
+        # the volume-weighted operator with the implicit no-slip wall drag,
+        # theta-weighted like the interior CN terms; its explicit half goes
+        # into the right-hand side through the provisional velocity
+        theta = cfg.be_cn_theta
+        a_rhs = eb.vfrac * (rho_half / dt) + eb.covered
+        a_op = a_rhs + theta * drag_v
+        mfe = ebmul(mf)
+        comps = []
+        for c in range(dim):
+            vbc, vbv = bcp.vel_diff_bc(c)
+            vs = vel_star[c] - (1.0 - theta) * drag_v * vel[c] / a_rhs
+            u_new, _ = diff.diffuse_scalar(
+                vs, eb.fluid * vel[c], a_rhs, a_rhs, mfe, 1.0, dx, recs[c], theta=theta,
+                rtol=cfg.visc_tol, fixed_cycles=diff_cycles, poisson_bc=vbc,
+                poisson_bvals=vbv, alpha_op=a_op,
+            )
+            comps.append(u_new * eb.fluid)
+        vel_star = torch.stack(comps)
     elif viscous:
         # dt folded into alpha: (alpha - theta L) u = ..., alpha = rho_half / dt
         alpha = rho_half / dt
@@ -411,7 +497,7 @@ def advance(
         vel_star, rho_half, p, gradp, dt, cfg.dom, dx, rtol=cfg.proj_tol,
         atol=cfg.proj_abs_tol, fixed_cycles=fixed_mg_cycles, bc=nodal_bc_,
         phi_bc=nodal_phi_bc, divu_src=divu_new,
-        spectral_sigma0=(1.0 / invariant_mean(rho_half)) if spectral else None, rz=rz,
+        spectral_sigma0=(1.0 / invariant_mean(rho_half)) if spectral else None, rz=rz, eb=eb,
     )
 
     # dsdt for the next step's MAC source (calc_dsdt)
@@ -432,20 +518,36 @@ def advance(
     return new_state
 
 
-def make_step(cfg: NSConfig, fixed_mg_cycles=None, spectral: bool = False):
-    """Step function closed over the static config."""
+def redist_geometry(cfg: NSConfig, eb):
+    """StateRedist's geometry terms of eb (eb/redist.py::
+    state_redist_geometry), or None without EB or under another
+    ns.redistribution_type."""
+    if eb is None or cfg.redist_type != "StateRedist" or eb.merge_dir is None:
+        return None
+    return state_redist_geometry(eb, tuple(cfg.geom.periodic))
+
+
+def make_step(cfg: NSConfig, fixed_mg_cycles=None, spectral: bool = False, eb=None):
+    """Step function closed over the static config (and the EB geometry,
+    with its redistribution terms formed once)."""
     hit = make_hit_forcing(cfg)
-    return lambda s: advance(s, cfg, fixed_mg_cycles, hit=hit, spectral=spectral)
+    rg = redist_geometry(cfg, eb)
+    return lambda s: advance(s, cfg, fixed_mg_cycles, hit=hit, spectral=spectral, eb=eb,
+                             eb_redist=rg)
 
 
-def make_step_with_particles(cfg: NSConfig, fixed_mg_cycles=None, spectral: bool = False):
+def make_step_with_particles(cfg: NSConfig, fixed_mg_cycles=None, spectral: bool = False,
+                             eb=None):
     """Step that also advects tracer particles with the step's MAC
-    velocities (AdvectWithUmac in advance)."""
+    velocities (AdvectWithUmac in advance). Unlike the JAX package's, it
+    takes the EB geometry (ROADMAP.md, notes on the reference)."""
     hit = make_hit_forcing(cfg)
+    rg = redist_geometry(cfg, eb)
 
     def step(state, parts):
         new_state, umac = advance(
             state, cfg, fixed_mg_cycles, hit=hit, return_umac=True, spectral=spectral,
+            eb=eb, eb_redist=rg,
         )
         return new_state, advect_with_umac(parts, umac, state.dt, cfg.geom)
 

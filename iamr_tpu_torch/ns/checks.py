@@ -26,8 +26,15 @@ from iamr_tpu_torch.ops.stencil import mac_div
 BOGUS_THRESHOLD = 1e18
 
 
-def check_div_cond(umac, dx: Sequence[float], divu_src=None):
-    """Max |div(u_mac) - S| over the level."""
+def check_div_cond(umac, dx: Sequence[float], divu_src=None, eb=None):
+    """Max |div(u_mac) - S| over the level; given the level's EBData, the
+    cut-cell divergence sum_d d(afrac u)/dx_d against vfrac S over the fluid
+    cells (the EB MAC projection's constraint)."""
+    if eb is not None:
+        div = mac_div(tuple(af * u for af, u in zip(eb.afrac, umac)), dx)
+        if divu_src is not None:
+            div = div - eb.vfrac * divu_src
+        return torch.amax(torch.abs(div * eb.fluid))
     div = mac_div(umac, dx)
     if divu_src is not None:
         div = div - divu_src
@@ -53,7 +60,7 @@ def scan_fields(**fields):
     }
 
 
-def run_debug_checks(cfg, state, umac, divu_src=None, step=None):
+def run_debug_checks(cfg, state, umac, divu_src=None, eb=None, step=None):
     """Host-side check of one step (ns.debug = 1): raises FloatingPointError
     on NaN or BogusValue in the state, prints the MAC divergence condition
     and the periodic-face mismatch; returns both."""
@@ -63,7 +70,7 @@ def run_debug_checks(cfg, state, umac, divu_src=None, step=None):
         # nothing to compare against
         div = float("nan")
     else:
-        div = float(check_div_cond(umac, cfg.geom.dx, divu_src=divu_src))
+        div = float(check_div_cond(umac, cfg.geom.dx, divu_src=divu_src, eb=eb))
     per = float(umac_periodic_mismatch(umac, periodic)) if any(periodic) else 0.0
     scans = scan_fields(vel=state.vel, rho=state.rho, trac=state.trac, p=state.p,
                         gradp=state.gradp, temp=state.temp)

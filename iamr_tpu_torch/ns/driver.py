@@ -10,8 +10,10 @@ step and a per-step callback. run_from_inputs: the reference's executable
 (main.cpp) on one inputs file: restarts from either checkpoint format,
 particles.*, and IOHooks' plotfiles, checkpoints, monitors and run logs.
 RZ runs project with radius weights and start without the hydrostatic
-pressure, as in the JAX package. EB and AMR (amr.max_level >= 1,
-amr.regrid_file) raise NotImplementedError.
+pressure, as in the JAX package; EB runs (eb2.geom_type, the geometry of
+eb/geom.py) project with volume-fraction weights and keep the covered
+cells' velocity 0. AMR (amr.max_level >= 1, amr.regrid_file) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from iamr_tpu_torch.config.parmparse import ParmParse
+from iamr_tpu_torch.eb.geom import eb_from_inputs
 from iamr_tpu_torch.io.amrex_chk import write_checkpoint_amrex
 from iamr_tpu_torch.io.checkpoint import load_checkpoint, load_particles, save_checkpoint, save_particles
 from iamr_tpu_torch.io.plotfile import write_plotfile
@@ -35,6 +38,7 @@ from iamr_tpu_torch.ns.advance import (
     make_hit_forcing,
     make_step,
     make_step_with_particles,
+    redist_geometry,
     rz_radii,
 )
 from iamr_tpu_torch.ns.checks import check_finite, run_debug_checks
@@ -62,17 +66,22 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 
 
 def initialize(cfg: NSConfig, fixed_mg_cycles=None, device=None,
-               init_iters: Optional[int] = None) -> NSState:
+               init_iters: Optional[int] = None, eb=None) -> NSState:
     """The initial state on `device` (default: the card, cuda:0): ICs, the
     initial velocity projection, the first dt and the initial pressure
     iterations (each advances a trial step from the IC and keeps its p and
     Gp). init_iters overrides cfg.init_iter. The solves are multigrid, to
     the config's tolerances or with fixed_mg_cycles V-cycles, as in the JAX
     package. Gravity runs start from the hydrostatic pressure, but in RZ,
-    whose initial projection is radius-weighted."""
+    whose initial projection is radius-weighted. eb: the level's EBData on
+    `device`; the covered cells' velocity starts at 0 and the projections
+    are the EB ones."""
     device = CUDA if device is None else torch.device(device)
     n_init_iter = cfg.init_iter if init_iters is None else init_iters
     state = init_state(cfg, device)
+    if eb is not None:
+        # covered cells carry the body state from the start
+        state = state._replace(vel=state.vel * eb.fluid)
     rz = rz_radii(cfg, cfg.tdtype, device)
     if cfg.do_temp and cfg.temp_cond_coef > 0.0:
         # d(divu)/dt starts at zero
@@ -84,13 +93,13 @@ def initialize(cfg: NSConfig, fixed_mg_cycles=None, device=None,
         for _ in range(cfg.init_vel_iter):
             vel, _ = initial_velocity_project(
                 vel, sig, cfg.dom, cfg.geom.dx, rtol=cfg.proj_tol, atol=cfg.proj_abs_tol,
-                fixed_cycles=fixed_mg_cycles, rz=rz,
+                fixed_cycles=fixed_mg_cycles, rz=rz, eb=eb,
             )
         state = state._replace(vel=vel)
     if abs(cfg.gravity) > 1e-4 and rz is None:
         p0, gp0 = initial_pressure_project(
             state.rho, cfg.gravity, cfg.dom, cfg.geom.dx, geom=cfg.geom, rtol=cfg.proj_tol,
-            atol=cfg.proj_abs_tol, fixed_cycles=fixed_mg_cycles,
+            atol=cfg.proj_abs_tol, fixed_cycles=fixed_mg_cycles, eb=eb,
         )
         state = state._replace(p=p0, gradp=gp0)
     if cfg.init_dt > 0.0:
@@ -98,9 +107,9 @@ def initialize(cfg: NSConfig, fixed_mg_cycles=None, device=None,
     else:
         dt0 = cfg.init_shrink * est_time_step(cfg, state)
     state = state._replace(dt=dt0)
-    hit = make_hit_forcing(cfg)
+    hit, rg = make_hit_forcing(cfg), redist_geometry(cfg, eb)
     for _ in range(max(0, n_init_iter)):
-        trial = advance(state, cfg, fixed_mg_cycles, hit=hit)
+        trial = advance(state, cfg, fixed_mg_cycles, hit=hit, eb=eb, eb_redist=rg)
         state = state._replace(p=trial.p, gradp=trial.gradp)
     return state
 
@@ -341,11 +350,13 @@ def run(
     particle_hooks=None,
     particle_out=None,
     step0: int = 0,
+    eb=None,
 ):
     """Advance from step `step0` (a restart's) until max_step / stop_time /
     steady state, from `state`, or from initialize(cfg, fixed_mg_cycles,
-    device) when it is None. The spectral solvers run where
-    spectral_eligible allows (ns.fft_solve), the multigrid otherwise.
+    device, eb=eb) when it is None. eb: the level's EBData, on the state's
+    device. The spectral solvers run where spectral_eligible allows
+    (ns.fft_solve) and there is no EB, the multigrid otherwise.
     Returns the final state, or (state, particles) when particles are given:
     they advect with each step's MAC velocities, go to
     particle_hooks(step, state, particles) after each step and to the
@@ -358,17 +369,17 @@ def run(
         raise NotImplementedError(
             f"amr.max_level = {cfg.max_level}: AMR is not ported (single level only)")
     if state is None:
-        state = initialize(cfg, fixed_mg_cycles, device)
-    sp = spectral_eligible(cfg, state.rho)
+        state = initialize(cfg, fixed_mg_cycles, device, eb=eb)
+    sp = eb is None and spectral_eligible(cfg, state.rho)
     debug = cfg.debug and particles is None
     if particles is not None:
-        pstep_fn = make_step_with_particles(cfg, fixed_mg_cycles, spectral=sp)
+        pstep_fn = make_step_with_particles(cfg, fixed_mg_cycles, spectral=sp, eb=eb)
     elif debug:
-        hit = make_hit_forcing(cfg)
+        hit, rg = make_hit_forcing(cfg), redist_geometry(cfg, eb)
         step_fn = lambda s: advance(s, cfg, fixed_mg_cycles, hit=hit, return_umac=True,
-                                    spectral=sp)
+                                    spectral=sp, eb=eb, eb_redist=rg)
     else:
-        step_fn = make_step(cfg, fixed_mg_cycles, spectral=sp)
+        step_fn = make_step(cfg, fixed_mg_cycles, spectral=sp, eb=eb)
 
     nmax = max_steps if max_steps is not None else (
         cfg.max_step if cfg.max_step >= 0 else 10**9
@@ -386,7 +397,7 @@ def run(
             state, particles = pstep_fn(state, particles)
         elif debug:
             state, umac = step_fn(state)
-            run_debug_checks(cfg, state, umac, step=step + 1)
+            run_debug_checks(cfg, state, umac, eb=eb, step=step + 1)
         else:
             state = step_fn(state)
         step += 1
@@ -419,24 +430,22 @@ def run(
 
 def _refuse_unported(pp: ParmParse, cfg: NSConfig):
     """NotImplementedError, naming the key, for the inputs of what is not
-    ported: AMR (amr.max_level >= 1, amr.regrid_file) and EB
-    (eb2.geom_type)."""
+    ported: AMR (amr.max_level >= 1, amr.regrid_file)."""
     if cfg.max_level >= 1:
         raise NotImplementedError(
             f"amr.max_level = {cfg.max_level}: AMR is not ported (single level only)")
     if pp.contains("amr.regrid_file"):
         raise NotImplementedError("amr.regrid_file: AMR grids are not ported")
-    geom_type = pp.query("eb2.geom_type")
-    if geom_type is not None and str(geom_type) != "all_regular":
-        raise NotImplementedError(f"eb2.geom_type = {geom_type}: EB is not ported")
 
 
 def run_from_inputs(path: str, overrides=(), device=None, **kw):
     """Run one inputs file as the reference's executable does (main.cpp):
     `overrides` are `key=value` strings after the file, as on its command
     line. On `device` (default the card, cuda:0; ns.dtype, else f32 on the
-    card and f64 on the CPU). amr.restart names a checkpoint of either
-    format (and its particles); particles.particle_init_file,
+    card and f64 on the CPU). eb2.geom_type builds the EB geometry
+    (eb/geom.py::eb_from_inputs; a restart builds it again from the
+    inputs). amr.restart names a checkpoint of either format (and its
+    particles); particles.particle_init_file,
     timestamp_dir and particle_output_file drive tracer particles;
     IOHooks writes the plotfiles, checkpoints and logs. Other keyword
     arguments go to run (max_steps, verbose, fixed_mg_cycles, callback).
@@ -450,6 +459,9 @@ def run_from_inputs(path: str, overrides=(), device=None, **kw):
     if restart:
         kw["state"], kw["step0"] = load_checkpoint(str(restart), cfg, device)
         restart_particles = load_particles(str(restart), cfg.tdtype, device)
+    eb = eb_from_inputs(pp, cfg.geom, dtype=cfg.dtype, device=device)
+    if eb is not None:
+        kw["eb"] = eb
     hooks = IOHooks(cfg, pp, verbose=kw.get("verbose", False))
     if kw.get("callback") is None and hooks.active:
         kw["callback"] = hooks

@@ -20,8 +20,9 @@ for forces). These plain tensor functions are the reference for the CUDA
 kernels in ops/godunov_kernels.py; in 3D PLM without use_forces_in_trans
 and RZ, extrap_vel_to_faces and advect_field hand off to those kernels,
 which run the plain functions themselves for CPU tensors. Every other
-case runs the plain functions on every device, as the JAX package does.
-The EB slopes and the box-batched advection (umac_gn) raise
+case runs the plain functions on every device, as the JAX package does:
+under EB (eb) the PLM slopes next to the body are slope4_eb's, from the
+fluid neighbours only. The box-batched advection (umac_gn) raises
 NotImplementedError.
 """
 
@@ -71,6 +72,37 @@ def slope4(qg, d):
     dl = 2.0 * (c - lo)
     dr = 2.0 * (hi - c)
     return _limit(dc, dl, dr)
+
+
+def slope4_eb(qg, d, fluid_g):
+    """The limited slope next to the body (extent m -> m-4): slope4 away
+    from it; where a cell of the 5-point stencil is covered, the fit over
+    the fluid neighbours along d (central with both face neighbours fluid,
+    one-sided with one, zero with none), monotonised-central limited over
+    the valid sides (the near-wall slopes of EBGodunov). Covered cells get
+    zero. fluid_g: the fluid mask grown like qg."""
+    m = qg.shape[d]
+    s4 = slope4(qg, d)
+    c = _shift(qg, d, 2, m - 4)
+    lo = _shift(qg, d, 1, m - 4)
+    hi = _shift(qg, d, 3, m - 4)
+    f_c = _shift(fluid_g, d, 2, m - 4)
+    f_lo = _shift(fluid_g, d, 1, m - 4) > 0.0
+    f_hi = _shift(fluid_g, d, 3, m - 4) > 0.0
+    both = f_lo & f_hi
+    dc = torch.where(both, 0.5 * (hi - lo),
+                     torch.where(f_hi, hi - c, torch.where(f_lo, c - lo, 0.0)))
+    dl = torch.where(f_lo, 2.0 * (c - lo), float("inf"))
+    dr = torch.where(f_hi, 2.0 * (hi - c), float("inf"))
+    dlim = torch.minimum(torch.abs(dl), torch.abs(dr))
+    ok = torch.where(both, dl * dr > 0.0, True)
+    dlim = torch.where(ok, dlim, 0.0)
+    s_m = torch.sign(dc) * torch.minimum(torch.abs(dc), dlim) * f_c
+    # near the wall: a covered cell within the 5-point stencil
+    near = torch.zeros(c.shape, dtype=torch.bool, device=c.device)
+    for o in range(5):
+        near = near | (_shift(fluid_g, d, o, m - 4) == 0.0)
+    return torch.where(near, s_m, s4)
 
 
 def ppm_lr(q3, d, cfl_L, cfl_R):
@@ -350,15 +382,16 @@ def advect_field(
     use_forces_in_trans: bool = False,
 ):
     """Edge states + fluxes + advective tendency for one field; returns
-    (fluxes, aofs). The 3D PLM case without RZ and use_forces_in_trans goes
-    through the kernel wrapper (godunov_kernels.godunov_plm, the
+    (fluxes, aofs). The 3D PLM case without RZ, EB and use_forces_in_trans
+    goes through the kernel wrapper (godunov_kernels.godunov_plm, the
     multi-field kernel at nc=1); the others run compute_edge_states and
     compute_fluxes_and_aofs. rz: (r_cell, r_face) of a 2D axisymmetric
-    run. The EB slopes (eb) and the box-batched ghost faces (umac_gn) are
-    not ported."""
-    if eb is not None or umac_gn is not None:
-        raise NotImplementedError("EB and box-batched advection are not ported")
-    if (s_g.ndim == 3 and scheme == "plm" and rz is None
+    run. eb: the level's EBData; PLM then takes the near-wall slopes of
+    slope4_eb, the domain's ghost cells counting as fluid (PPM and BDS keep
+    their own). The box-batched ghost faces (umac_gn) are not ported."""
+    if umac_gn is not None:
+        raise NotImplementedError("box-batched advection is not ported")
+    if (s_g.ndim == 3 and scheme == "plm" and rz is None and eb is None
             and not use_forces_in_trans):
         from iamr_tpu_torch.ops.godunov_kernels import godunov_plm
 
@@ -366,9 +399,13 @@ def advect_field(
             s_g, umac, umac_g, dt, dx, ncell, iconserv, force_g=force_g,
             periodic=periodic,
         )
+    fluid_g = None
+    if eb is not None and scheme != "ppm":
+        ng = (s_g.shape[0] - ncell[0]) // 2
+        fluid_g = torch.nn.functional.pad(eb.fluid, [ng] * (2 * s_g.ndim), value=1.0)
     edges = compute_edge_states(
         s_g, umac_g, dt, dx, ncell, iconserv, force_g=force_g, periodic=periodic,
-        scheme=scheme, use_forces_in_trans=use_forces_in_trans,
+        scheme=scheme, fluid_g=fluid_g, use_forces_in_trans=use_forces_in_trans,
     )
     return compute_fluxes_and_aofs(edges, umac, dx, iconserv, s_cc=s_cc, rz=rz)
 
@@ -383,6 +420,7 @@ def compute_edge_states(
     force_g=None,
     periodic: Optional[Sequence[bool]] = None,
     scheme: str = "plm",
+    fluid_g=None,
     use_forces_in_trans: bool = False,
 ):
     """Scalar edge states on all real faces given time-centred u_mac.
@@ -393,7 +431,8 @@ def compute_edge_states(
     transverse correction (plus -dt/2 s d(u_mac)/dx normal term),
     convective form vbar * d(s_hat)/dy. scheme: "plm", "ppm" (the normal
     predictor) or "bds" (ops/bds.py, whose characteristic-region averages
-    carry the transverse terms themselves)."""
+    carry the transverse terms themselves). fluid_g: the EB fluid mask
+    grown like s_g; the PLM slopes are then slope4_eb's."""
     if scheme == "bds":
         from iamr_tpu_torch.ops.bds import bds_edge_states
 
@@ -406,7 +445,8 @@ def compute_edge_states(
     others = lambda d: [e for e in range(dim) if e != d]
 
     if scheme != "ppm":
-        slopes = [_trim(slope4(s_g, d), 1, ng, dims=others(d)) for d in range(dim)]
+        slopes = [_trim(slope4(s_g, d) if fluid_g is None else slope4_eb(s_g, d, fluid_g),
+                        1, ng, dims=others(d)) for d in range(dim)]
     s_1 = _trim(s_g, 1, ng)
 
     def _predict(d):

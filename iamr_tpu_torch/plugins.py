@@ -19,8 +19,8 @@ driver, the step and the plotfile writer pick them up by probtype or name.
     @plug.derive_field("q_criterion")       # amr.derive_plot_vars
     def qcrit(cfg, state): ...              # -> cell tensor
 
-The JAX package's fourth seam, EB_GEOMETRIES (eb2.geom_type), waits for
-the port of EB.
+    @plug.eb_geometry("my_nozzle")          # eb2.geom_type = my_nozzle
+    def nozzle(pp, dim): ...                # -> implicit function psi(*x)
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from typing import Callable, Dict
 PROBLEM_ICS: Dict[int, Callable] = {}
 FORCINGS: Dict[str, Callable] = {}
 DERIVES: Dict[str, Callable] = {}
+EB_GEOMETRIES: Dict[str, Callable] = {}
 
 
 def problem_ic(probtype: int):
@@ -65,6 +66,22 @@ def derive_field(name: str):
 
     def deco(fn):
         DERIVES[str(name)] = fn
+        return fn
+
+    return deco
+
+
+def eb_geometry(name: str):
+    """Register fn(pp, dim) -> a fluid-positive implicit function psi(*x)
+    for eb2.geom_type = name (the reference's EB2 UserDefined seam). psi
+    takes dim float64 torch tensors of sample coordinates that broadcast
+    against each other (shapes (m, 1, 1), (1, n, 1), (1, 1, p) in 3D, on
+    the geometry's device) and returns a tensor that broadcasts to their
+    common shape, > 0 in the fluid and < 0 in the body
+    (eb/geom.py::build_eb_geometry)."""
+
+    def deco(fn):
+        EB_GEOMETRIES[str(name)] = fn
         return fn
 
     return deco

@@ -4,8 +4,9 @@ Solves div((1/rho)_faces grad phi) = div(u_mac) - S and corrects
 u_mac <- u_mac - (1/rho) grad phi, so div(u_mac) = S. Face coefficients are
 arithmetic averages of 1/rho. The solve is the all-periodic uniform-density
 FFT solve (spectral_beta0) or the cell multigrid (ops/mg.py). In RZ (2D
-axisymmetric) the coefficients and the velocities are weighted by radius.
-The EB and multi-box projections are not ported.
+axisymmetric) the coefficients and the velocities are weighted by radius,
+under EB by the area fractions (the cut-cell operator). The multi-box
+projection is not ported.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ def mac_project(
     bvals=None,
     spectral_beta0=None,
     rz=None,
+    eb=None,
 ):
     """Project the MAC velocities; returns (umac_corrected, phi, (res, it)).
 
@@ -70,13 +72,26 @@ def mac_project(
     rz: (r_cell, r_face) of a 2D axisymmetric run (the reference's radMult
     scaling): the solve is d(r b phi_r)/dr + d(r b phi_z)/dz =
     d(r u_r)/dr + d(r u_z)/dz - r S, the correction u -= b grad phi is
-    unscaled, and the FFT solve is not used."""
+    unscaled, and the FFT solve is not used.
+
+    eb: the level's EBData (MLEBABecLap): the face coefficients are scaled
+    by the area fractions and the covered cells pinned by the identity
+    (alpha = covered, a = b = 1), so that the corrected velocities meet the
+    cut-cell constraint sum_d d(afrac u)/dx_d = vfrac S; faces without area
+    carry no velocity. It takes precedence over rz and the FFT solve."""
     dim = rho.ndim
     if bc is None:
         bc = mac_poisson_bc(dom)
     beta = beta_from_rho(rho, dom)
     beta_op = beta
-    if rz is not None:
+    alpha, a = torch.zeros_like(rho), 0.0
+    if eb is not None:
+        beta_op = tuple(b * af for b, af in zip(beta, eb.afrac))
+        div = mac_div(tuple(af * u for af, u in zip(eb.afrac, umac)), dx)
+        if divu_src is not None:
+            div = div - eb.vfrac * divu_src
+        alpha, a = eb.covered, 1.0
+    elif rz is not None:
         r_cell, r_face = rz
         beta_op = (r_face * beta[0], r_cell * beta[1])
         div = mac_div((r_face * umac[0], r_cell * umac[1]), dx)
@@ -86,7 +101,7 @@ def mac_project(
         div = mac_div(umac, dx)
         if divu_src is not None:
             div = div - divu_src
-    if spectral_beta0 is not None and rz is None:
+    if spectral_beta0 is not None and rz is None and eb is None:
         phi = solve_cell_helmholtz(-div, 0.0, spectral_beta0, dx)
         corr = mg.get_fluxes(phi, beta, 1.0, dx, bc, bvals=bvals)
         umac_new = tuple(umac[d] + corr[d] for d in range(dim))
@@ -94,13 +109,14 @@ def mac_project(
 
     # the operator is (a alpha - b div beta grad): a = 0, b = 1 gives
     # -div(beta grad phi) = -div
-    phi, res, it = mg.mg_solve(-div, torch.zeros_like(rho), beta_op, 0.0, 1.0, dx, bc,
-                               phi0=phi0, bvals=bvals, rtol=rtol, atol=atol,
-                               fixed_cycles=fixed_cycles)
+    phi, res, it = mg.mg_solve(-div, alpha, beta_op, a, 1.0, dx, bc, phi0=phi0, bvals=bvals,
+                               rtol=rtol, atol=atol, fixed_cycles=fixed_cycles)
     corr = mg.get_fluxes(phi, beta, 1.0, dx, bc, bvals=bvals)
     umac_new = []
     for d in range(dim):
         u = umac[d] + corr[d]
+        if eb is not None:
+            u = u * (eb.afrac[d] > 0.0)
         # no correction through non-periodic, non-outflow boundaries
         if bc.lo[d] == NEUMANN:
             u.narrow(d, 0, 1).copy_(umac[d].narrow(d, 0, 1))

@@ -11,8 +11,10 @@ initial_velocity_project is the initial projection of driver.initialize,
 initial_pressure_project its hydrostatic start of gravity runs, and
 hydrostatic_phi_bc the Dirichlet phi of outflow faces under gravity. In RZ
 (2D axisymmetric) sigma, the velocity and the divergence source are
-weighted by the cell radius and the correction stays unscaled. The EB and
-multi-box projections are not ported.
+weighted by the cell radius and the correction stays unscaled; under EB
+(MLNodeLaplacian's EB form) they are weighted by the volume fraction and
+the covered cells' velocity and Gp are zero. The multi-box projection is
+not ported.
 """
 
 from __future__ import annotations
@@ -76,6 +78,7 @@ def level_project(
     divu_src=None,
     spectral_sigma0=None,
     rz=None,
+    eb=None,
 ):
     """Approximate nodal projection of the provisional velocity; returns
     (vel_new, p_new, gradp_new, (res, it)). spectral_sigma0: scalar
@@ -83,7 +86,11 @@ def level_project(
     when no Dirichlet phi_bc values are given and not in RZ). Otherwise the
     nodal multigrid solves to rtol/atol (or fixed_cycles V-cycles),
     warm-started from p_old: p^{n-1/2} solves the same equation one step
-    earlier. rz: (r_cell, r_face) of a 2D axisymmetric run."""
+    earlier. rz: (r_cell, r_face) of a 2D axisymmetric run. eb: the
+    level's EBData; sigma, Vs and S are weighted by vfrac, the solve starts
+    from zero (the covered nodes, whose diagonal is zero, would keep
+    p_old's values) and never in Fourier space, and the covered cells'
+    velocity and Gp are zero."""
     dim = rho_half.ndim
     if bc is None:
         bc = nodal_bc(dom)
@@ -91,27 +98,28 @@ def level_project(
     vs = tuple(vel_star[d] / dt + gradp_old[d] * sigma for d in range(dim))
     # prescribed inflow normal velocity enters the divergence, scaled like vs
     inflow = _inflow_vals(dom, dim, dt)
-    if rz is not None:
-        # sigma and U weighted by the cell radius (scaleVar radMult)
-        sigma_op = sigma * rz[0]
-        rhs = div_cell_to_node(tuple(rz[0] * v for v in vs), dx, bc, inflow)
-    else:
-        sigma_op = sigma
-        rhs = div_cell_to_node(vs, dx, bc, inflow)
+    # sigma, U and S weighted by vfrac (EB) or the cell radius (scaleVar
+    # radMult)
+    wgt = eb.vfrac if eb is not None else rz[0] if rz is not None else None
+    sigma_op = sigma if wgt is None else sigma * wgt
+    rhs = div_cell_to_node(vs if wgt is None else tuple(wgt * v for v in vs), dx, bc, inflow)
     if divu_src is not None:
-        src = divu_src if rz is None else rz[0] * divu_src
+        src = divu_src if wgt is None else wgt * divu_src
         rhs = rhs - avg_cell_to_node(src, bc) / dt
-    if spectral_sigma0 is not None and phi_bc is None and rz is None:
+    if spectral_sigma0 is not None and phi_bc is None and wgt is None:
         phi = solve_nodal_poisson(rhs, spectral_sigma0, dx)
         res, it = torch.zeros((), dtype=rho_half.dtype, device=rho_half.device), 0
     else:
         # the phi_bc lifting assumes the lifted part starts homogeneous
-        phi0 = p_old if tuple(p_old.shape) == tuple(rhs.shape) and phi_bc is None else None
-        phi, res, it = nodal_solve(rhs, sigma_op, dx, bc, phi0=phi0, rtol=rtol, atol=atol,
-                                   fixed_cycles=fixed_cycles, phi_bc=phi_bc)
+        warm = tuple(p_old.shape) == tuple(rhs.shape) and phi_bc is None and eb is None
+        phi, res, it = nodal_solve(rhs, sigma_op, dx, bc, phi0=p_old if warm else None,
+                                   rtol=rtol, atol=atol, fixed_cycles=fixed_cycles,
+                                   phi_bc=phi_bc)
     gphi = grad_node_to_cell(phi, dx)
     vel_new = torch.stack([(vs[d] - sigma * gphi[d]) * dt for d in range(dim)])
     gradp_new = torch.stack(list(gphi))
+    if eb is not None:
+        vel_new, gradp_new = vel_new * eb.fluid, gradp_new * eb.fluid
     return vel_new, phi, gradp_new, (res, it)
 
 
@@ -125,28 +133,32 @@ def initial_velocity_project(
     atol: float = 1e-16,
     fixed_cycles: Optional[int] = None,
     rz=None,
+    eb=None,
 ):
     """Make the initial velocity divergence-free (initialVelocityProject):
     solve L(phi) = D(U) with sigma = 1/rho, U <- U - sigma G(phi); the
     initial pressure stays zero. rz: (r_cell, r_face) of a 2D axisymmetric
-    run, whose sigma and U are weighted by the cell radius. divu_src: a
-    node array, subtracted as it is. Returns (vel_new, (res, it))."""
+    run, whose sigma and U are weighted by the cell radius; eb: the level's
+    EBData, weighting them by vfrac and zeroing the covered cells' velocity.
+    divu_src: a node array, subtracted as it is. Returns (vel_new, (res,
+    it))."""
     dim = rho.ndim
     bc = nodal_bc(dom)
     sigma = 1.0 / rho
     u = tuple(vel[d] for d in range(dim))
-    if rz is not None:
-        sigma_op = sigma * rz[0]
-        rhs = div_cell_to_node(tuple(rz[0] * ud for ud in u), dx, bc, _inflow_vals(dom, dim))
-    else:
-        sigma_op = sigma
-        rhs = div_cell_to_node(u, dx, bc, _inflow_vals(dom, dim))
+    wgt = eb.vfrac if eb is not None else rz[0] if rz is not None else None
+    sigma_op = sigma if wgt is None else sigma * wgt
+    rhs = div_cell_to_node(u if wgt is None else tuple(wgt * ud for ud in u), dx, bc,
+                           _inflow_vals(dom, dim))
     if divu_src is not None:
         rhs = rhs - divu_src
     phi, res, it = nodal_solve(rhs, sigma_op, dx, bc, rtol=rtol, atol=atol,
                                fixed_cycles=fixed_cycles)
     gphi = grad_node_to_cell(phi, dx)
-    return torch.stack([u[d] - sigma * gphi[d] for d in range(dim)]), (res, it)
+    vel_new = torch.stack([u[d] - sigma * gphi[d] for d in range(dim)])
+    if eb is not None:
+        vel_new = vel_new * eb.fluid
+    return vel_new, (res, it)
 
 
 def initial_pressure_project(
@@ -158,18 +170,22 @@ def initial_pressure_project(
     rtol: float = 1e-12,
     atol: float = 1e-16,
     fixed_cycles: Optional[int] = None,
+    eb=None,
 ):
     """Hydrostatic initial pressure of gravity runs
     (initialPressureProject): project the body-force field (0, ..., 0, g)
-    with sigma = 1/rho; phi is the hydrostatic pressure and Gp its nodal
-    gradient. Given geom, outflow faces take hydrostatic_phi_bc's values.
-    Returns (p, gradp)."""
+    with sigma = 1/rho (under EB both weighted by vfrac); phi is the
+    hydrostatic pressure and Gp its nodal gradient. Given geom, outflow
+    faces take hydrostatic_phi_bc's values. Returns (p, gradp)."""
     dim = rho.ndim
     bc = nodal_bc(dom)
     g = torch.full_like(rho, gravity)
     u = tuple(g if d == dim - 1 else torch.zeros_like(rho) for d in range(dim))
+    sigma = 1.0 / rho
+    if eb is not None:
+        sigma, u = sigma * eb.vfrac, tuple(eb.vfrac * ud for ud in u)
     phi_bc = hydrostatic_phi_bc(geom, dom, rho, gravity) if geom is not None else None
-    phi, _, _ = nodal_solve(div_cell_to_node(u, dx, bc), 1.0 / rho, dx, bc, rtol=rtol,
+    phi, _, _ = nodal_solve(div_cell_to_node(u, dx, bc), sigma, dx, bc, rtol=rtol,
                             atol=atol, fixed_cycles=fixed_cycles, phi_bc=phi_bc)
     return phi, torch.stack(list(grad_node_to_cell(phi, dx)))
 

@@ -12,8 +12,9 @@
   * a port restart (HIT 16^3 with particles through run_from_inputs)
     continues bit for bit, and stays on the FFT path it started on;
   * the refusals of what is not ported (amr.max_level >= 1,
-    amr.regrid_file, EB), ns.debug_nans, and the CLI's refusal to run
-    without a card unless given --device=cpu.
+    amr.regrid_file) and of an unknown eb2.geom_type (a sphere runs),
+    ns.debug_nans, and the CLI's refusal to run without a card unless
+    given --device=cpu.
 """
 
 import filecmp
@@ -276,6 +277,13 @@ def test_port_restart_is_bit_for_bit(tmp_path):
     ("amr.max_level=1", "amr.max_level"), ("amr.regrid_file=grids.txt", "amr.regrid_file"),
     ("eb2.geom_type=sphere", "eb2.geom_type")])
 def test_cli_refuses_unported_inputs(override, key):
+    """AMR is refused before any work, naming the key. EB is ported: the
+    CLI runs eb2.geom_type = sphere, and refuses, naming the key, only a
+    geometry name it does not know."""
+    if key == "eb2.geom_type":
+        assert tmain.main([HIT, "amr.n_cell=8 8 8", override, "max_step=1",
+                           "--device=cpu"]) == 0
+        override = "eb2.geom_type=teapot"
     with pytest.raises(NotImplementedError, match=key):
         tmain.main([HIT, "amr.n_cell=8 8 8", override, "--device=cpu"])
 

@@ -19,10 +19,12 @@ import torch
 import jax.numpy as jnp
 
 from iamr_tpu.config.parmparse import ParmParse as JParmParse
+from iamr_tpu.eb import geom as jgeom
 from iamr_tpu.ns import driver as jdriver
 from iamr_tpu.ns import state as jstate
 from iamr_tpu_torch import convert
 from iamr_tpu_torch.config.parmparse import ParmParse as TParmParse
+from iamr_tpu_torch.eb import geom as tgeom
 from iamr_tpu_torch.ns import driver as tdriver
 from iamr_tpu_torch.ns import state as tstate
 
@@ -83,27 +85,37 @@ def configs(text, dim=None):
                                       device="cpu"))
 
 
+def ebs(text, jcfg, tcfg):
+    """The EB geometries of an inputs text's eb2.* (None without EB) in the
+    JAX package and in the port (CPU, the config's dtype)."""
+    return (jgeom.eb_from_inputs(JParmParse.from_string(text), jcfg.geom, dtype=jcfg.dtype),
+            tgeom.eb_from_inputs(TParmParse.from_string(text), tcfg.geom, dtype=tcfg.dtype,
+                                 device="cpu"))
+
+
 def run_both(text, fixed, steps=2, perturb=1e-3, jinit=None):
     """initialize (no pressure iterations), compared; the perturbation;
     driver.run for `steps` steps, compared to 1e-10 of max|ref| on every
-    state field. Returns the port's config and final state.
+    state field; both packages build the EB geometry of eb2.* where the
+    text has one. Returns the port's config and final state.
 
     jinit: the JAX package's initialize of this config where the caller
-    has it already (the step's switches do_mom_diff, do_denminmax and
-    do_mac_proj do not enter initialize: cases that differ by them share
-    it)."""
+    has it already (the step's switches do_mom_diff, do_denminmax,
+    do_mac_proj and ns.redistribution_type do not enter initialize: cases
+    that differ by them share it)."""
     jcfg, tcfg = configs(text)
+    jeb, teb = ebs(text, jcfg, tcfg)
     jst = jinit if jinit is not None else jdriver.initialize(jcfg, fixed_mg_cycles=fixed,
-                                                              init_iters=0)
-    tst = tdriver.initialize(tcfg, fixed_mg_cycles=fixed, device="cpu", init_iters=0)
+                                                              init_iters=0, eb=jeb)
+    tst = tdriver.initialize(tcfg, fixed_mg_cycles=fixed, device="cpu", init_iters=0, eb=teb)
     for k in FIELDS:
         close(getattr(jst, k), getattr(tst, k))
     noise = perturb * np.random.RandomState(3).randn(*jst.vel.shape)
     jst = jst._replace(vel=jst.vel + jnp.asarray(noise))
     tst = convert.state_from_numpy(
         {k: None if v is None else np.asarray(v) for k, v in jst._asdict().items()}, CPU)
-    jst = jdriver.run(jcfg, jst, max_steps=steps, fixed_mg_cycles=fixed)
-    tst = tdriver.run(tcfg, tst, max_steps=steps, fixed_mg_cycles=fixed)
+    jst = jdriver.run(jcfg, jst, max_steps=steps, fixed_mg_cycles=fixed, eb=jeb)
+    tst = tdriver.run(tcfg, tst, max_steps=steps, fixed_mg_cycles=fixed, eb=teb)
     for k in FIELDS:
         close(getattr(jst, k), getattr(tst, k))
     return tcfg, tst
