@@ -150,7 +150,37 @@ Phases (any failure raises and exits non-zero):
  22. EB, GPU (kernels) vs CPU (plain), f64, initialize + 2 steps to 1e-10:
      the 2D file at 32x16 and the 3D file at 16x8x8 (the cylinder widened
      so that covered cells exist), StateRedist and FluxRedist, fixed and
-     tolerance mode; the geometry built on each device, equal.
+     tolerance mode; the geometry built on each device, equal;
+ 23. AMR at full width: the two-level Rayleigh-Taylor of
+     examples/inputs.3d.rayleigh_taylor_amr (128x128x256 coarse, ratio 2,
+     the fine patch on the density interface) f32, ns/driver.py's two-level
+     start (tags, the composite pressure iteration), subcycled,
+     fixed_mg_cycles=4, 1 warm-up + 4 timed coarse steps tagged again every
+     2 (the patch before and after each regrid); each coarse step's wrapper
+     calls by the formula (1 + r of K1 and K2; the MG calls of each level's
+     advances on its own box, the mac_sync, Vsync and Ssync solves and 2 x 2
+     FAC nodal solves), and before the last timed step (on the patch the
+     steps before it ended on): no host sync in a step without a regrid, a
+     profiled step whose CUDA launches equal the counted ones, each level's
+     MAC divergence < 1e-2 of umax/dx, device ms of a coarse step beside
+     phase 12's for two single-level steps (the same finest dx over the
+     same time); the composite mass drift, s/step and peak memory;
+ 23b. K1 and K2 bit for bit and the cell and nodal kernels to MG_TOL against
+     their plain versions on the fine level's captured calls (its MAC, CN
+     and nodal calls, with the coarse-fine Dirichlet sides) and on a
+     captured FAC sync solve, each timed;
+ 24. AMR, GPU (kernels) vs CPU (plain), f64, initialize + 2 coarse steps to
+     1e-10 on every field of every level: RT 2D 32x64 two-level subcycled
+     and composite, RT3D 16x16x32, HotSpot 3D 16^3 (do_temp), the 2D flow
+     past a cylinder 32x16 with EB on both levels, HIT 16^3 with 256
+     particles, RT 2D three-level with fixed nested patches, and a tagged
+     RT 2D run (a seeded velocity) that regrids (run_multilevel, 4 steps);
+ 25. the program on AMR: `python -m iamr_tpu_torch
+     examples/inputs.3d.rayleigh_taylor_amr amr.n_cell="32 32 64"
+     max_step=4`, f64, AMReX two-level checkpoints at 2 and 4 and a
+     two-level plotfile at 4 (run beside phase 24); its kernel calls name
+     K1, K2 and both MG kernels; the restart from chk00002 writes chk00004
+     and plt00004 byte for byte.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
@@ -825,33 +855,51 @@ def phase_nodal_kernel(dev, mk):
                     nodal_contracts(mk, case, SWEEP_CALLS), torch.float32, nodal_term(case))
 
 
-def mg_levels(cells, stop, nodes):
-    """Levels of the MG hierarchy (ops/mg.py::build_hierarchy,
-    ops/mg_nodal.py::build_nodal_hierarchy): halve until an extent is odd,
-    the smallest is <= 2, or the level has <= stop cells (nodes)."""
+def mg_hierarchy(cells, stop, nodes):
+    """(levels of the MG hierarchy, the bottom level's cells (nodes)):
+    ops/mg.py::build_hierarchy and ops/mg_nodal.py::build_nodal_hierarchy
+    halve until an extent is odd, the smallest is <= 2, or the level has
+    <= stop cells (nodes)."""
     count, shape = 1, tuple(cells)
     while not (any(x % 2 for x in shape) or min(shape) <= 2
                or int(np.prod([x + nodes for x in shape])) <= stop):
         shape = tuple(x // 2 for x in shape)
         count += 1
-    return count
+    return count, int(np.prod([x + nodes for x in shape]))
 
 
-def expected_mg_launches(cells, cycles, cn_solves=3):
-    """Wrapper calls per step of the fixed-cycle MG step on a box of `cells`:
-    each solve makes one residual call, then per V-cycle 2 smoother calls
-    per level above the dense bottom plus one residual call. Cell: the MAC
-    solve (cycles V-cycles) and cn_solves CN solves (velocity components,
-    diffusing tracers, temperature; max(1, cycles // 4) each); nodal: the
-    projection (cycles V-cycles)."""
+def mg_levels(cells, stop, nodes):
+    """Levels of the MG hierarchy (mg_hierarchy)."""
+    return mg_hierarchy(cells, stop, nodes)[0]
+
+
+# the largest bottom level the dense (pseudo)inverse takes; a larger one
+# (a patch extent that coarsens to an odd size early) is smoothed once, then
+# solved by CG (ops/mg.py::_bottom_dense_inv, ops/mg_nodal.py)
+DENSE_INV_MAX_DOFS = 4096
+
+
+def solve_calls(cells, cycles, nodal):
+    """Wrapper calls of one fixed-cycle solve on a box of `cells`: one
+    residual call, then per V-cycle 2 smoother calls per level above the
+    bottom, one residual call, and one smoother call at a CG bottom."""
     from iamr_tpu_torch.ops.mg import DENSE_BOTTOM_DOFS
     from iamr_tpu_torch.ops.mg_nodal import NODAL_DENSE_BOTTOM_DOFS
 
-    per = lambda levels, k: 1 + k * (2 * (levels - 1) + 1)
-    lc = mg_levels(cells, DENSE_BOTTOM_DOFS, 0)
-    ln = mg_levels(cells, NODAL_DENSE_BOTTOM_DOFS, 1)
-    return {"mg_cell_gsrb": per(lc, cycles) + cn_solves * per(lc, max(1, cycles // 4)),
-            "mg_nodal_jacobi": per(ln, cycles)}
+    levels, bottom = mg_hierarchy(cells, NODAL_DENSE_BOTTOM_DOFS if nodal else DENSE_BOTTOM_DOFS,
+                                  int(nodal))
+    return 1 + cycles * (2 * (levels - 1) + 1 + int(bottom > DENSE_INV_MAX_DOFS))
+
+
+def expected_mg_launches(cells, cycles, cn_solves=3):
+    """Wrapper calls per step of the fixed-cycle MG step on a box of `cells`
+    (solve_calls per solve). Cell: the MAC solve (cycles V-cycles) and
+    cn_solves CN solves (velocity components, diffusing tracers,
+    temperature; max(1, cycles // 4) each); nodal: the projection (cycles
+    V-cycles)."""
+    return {"mg_cell_gsrb": solve_calls(cells, cycles, False)
+            + cn_solves * solve_calls(cells, max(1, cycles // 4), False),
+            "mg_nodal_jacobi": solve_calls(cells, cycles, True)}
 
 
 def cn_solves(cfg):
@@ -1290,21 +1338,24 @@ def copies_gap(args):
     return gap
 
 
-def mg_pairs_on_step(label, kept, mk, dtype, card, timed=True):
-    """The captured MG calls (cell MAC, cell CN, nodal) against their plain
+def mg_pairs_on_step(label, kept, mk, dtype, card, timed=True,
+                     keys=("cell_mac", "cell_cn", "nodal")):
+    """The captured MG calls (keys naming cell calls hold "cell", the others
+    are nodal; by default cell MAC, cell CN, nodal) against their plain
     versions (check_pairs), and their times beside the plain versions'.
     Returns {key: (max_abs_err, ms, plain_ms, bytes)}."""
     out = {}
-    for key in ("cell_mac", "cell_cn", "nodal"):
+    for key in keys:
         if key not in kept:
             continue
         args, kw = kept[key]
-        if key == "nodal":
-            log(f"  {label} nodal call: the periodic copies of phi and rhs lie up to "
+        cell = "cell" in key
+        if not cell:
+            log(f"  {label} {key} call: the periodic copies of phi and rhs lie up to "
                 f"{copies_gap(args):.3e} apart (compared as they are)")
-        kern = mk.cell_smooth if key.startswith("cell") else mk.nodal_jacobi
-        plain = mk.cell_smooth_ref if key.startswith("cell") else mk.nodal_jacobi_ref
-        if key.startswith("cell"):
+        kern = mk.cell_smooth if cell else mk.nodal_jacobi
+        plain = mk.cell_smooth_ref if cell else mk.nodal_jacobi_ref
+        if cell:
             diag = mk.cell_diag(*args[2:9])
         else:
             diag = mk.nodal_diag_mask(args[1], args[3], args[4], args[5])[0]
@@ -2127,6 +2178,425 @@ def phase_gpu_cpu_eb(dev):
     return max(out.values())
 
 
+# ---------------------------------------------------------------------------
+# AMR on single-box levels (phases 23-25)
+
+AMR_RT3D = "inputs.3d.rayleigh_taylor_amr"
+
+
+def expected_ml_launches(cfg, spec, cycles):
+    """Wrapper calls of one subcycled two-level coarse step in fixed-cycle
+    mode: the coarse advance, `ratio` fine advances (each by
+    expected_mg_launches on its own box), then the sync: the mac_sync cell
+    solve, one Vsync CN solve per velocity component (with viscosity) and
+    one Ssync solve per diffusing tracer (cycles V-cycles each, on the
+    coarse level), and n_fac = 2 FAC iterations of a coarse and a fine
+    nodal solve; K1 and K2 once a level advance (3D PLM)."""
+    from iamr_tpu_torch.amr.multilevel import make_fine_config
+
+    r = spec.ratio
+    cfg_f = make_fine_config(cfg, spec)
+    c = expected_mg_launches(cfg.geom.ncell, cycles, cn_solves(cfg))
+    f = expected_mg_launches(spec.ncell, cycles, cn_solves(cfg_f))
+    nsync = 1 + (cfg.dim if cfg.vel_visc_coef > 0.0 else 0) + sum(
+        1 for t in range(cfg.ntrac) if t < len(cfg.scal_diff_coefs) and cfg.scal_diff_coefs[t] > 0.0)
+    return {
+        "mg_cell_gsrb": c["mg_cell_gsrb"] + r * f["mg_cell_gsrb"]
+        + nsync * solve_calls(cfg.geom.ncell, cycles, False),
+        "mg_nodal_jacobi": c["mg_nodal_jacobi"] + r * f["mg_nodal_jacobi"]
+        + 2 * (solve_calls(cfg.geom.ncell, cycles, True) + solve_calls(spec.ncell, cycles, True)),
+        "extrap_plm": 1 + r, "godunov_plm_multi": 1 + r}
+
+
+def composite_mass(cfg, spec, ml):
+    """Mass of the uncovered coarse cells and the fine level (f64 sums)."""
+    from iamr_tpu_torch.amr.hierarchy import crse_region
+
+    rc = ml.crse.rho.to(torch.float64).clone()
+    rc[crse_region(spec)] = 0.0
+    vc = cfg.geom.cell_volume
+    return float(rc.sum() * vc + ml.fine.rho.to(torch.float64).sum() * (vc / spec.ratio**cfg.dim))
+
+
+def level_mac_divergence(cfgs, states, umacs):
+    """Each level's max|div u_mac| dx / max|u|."""
+    out = []
+    for c, st, um in zip(cfgs, states, umacs):
+        dx = c.geom.dx
+        div = float(sum(torch.diff(um[d], dim=d) / dx[d] for d in range(c.dim)).abs().max())
+        out.append(div * dx[0] / max(float(st.vel.abs().max()), 1e-30))
+    return out
+
+
+def phase_amr_rt3d(dev, gk, mk, card, rt3d_device_ms, steps=4, cycles=4):
+    """Returns the metrics and (cfg, MLState, spec) for phase 23b."""
+    from iamr_tpu_torch.amr import multilevel as aml
+    from iamr_tpu_torch.amr.tagging import parse_refinement_indicators
+    from iamr_tpu_torch.ns import driver
+    from iamr_tpu_torch.ns.state import config_from_inputs
+
+    pp = example_pp(AMR_RT3D, "ns.dtype=float32")
+    cfg = config_from_inputs(pp, device=dev)
+    tags = parse_refinement_indicators(pp)
+    regrid_int = int(pp.query("amr.regrid_int"))
+    log(f"phase 23: two-level Rayleigh-Taylor {cfg.geom.ncell} x ratio {cfg.ref_ratio} f32 "
+        f"(examples/{AMR_RT3D}), subcycled, fixed_mg_cycles={cycles}, ns/driver.py's two-level "
+        f"start (tags, the composite pressure iteration), 1 warm-up + {steps} timed coarse "
+        f"steps, tagged again every {regrid_int}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ml, spec = driver.initialize_multilevel(cfg, cycles, dev, error_tags=tags, subcycle=True)
+    torch.cuda.synchronize()
+    log(f"  start {time.perf_counter() - t0:.3f} s: fine patch lo {spec.lo} n {spec.ncell} "
+        f"({int(np.prod(spec.ncell))} cells over {int(np.prod(cfg.geom.ncell))} coarse), "
+        f"dt {float(ml.crse.dt):.6e}")
+    fns = {}
+
+    def step_of(sp):
+        if sp not in fns:
+            fns[sp] = aml.make_two_level_step(cfg, sp, cycles, subcycle=True)
+        return fns[sp]
+
+    mass0, n, walls = None, 0, []
+
+    def coarse_step(ml, spec, timed):
+        nonlocal n
+        t0 = time.perf_counter()
+        regrid = n > 0 and n % regrid_int == 0
+        if regrid:
+            before = spec
+            ml, spec = driver.regrid_two_level(cfg, ml, spec, tags, subcycle=True)
+            log(f"  regrid before step {n + 1}: patch lo {before.lo} n {before.ncell} -> lo "
+                f"{spec.lo} n {spec.ncell}")
+        gk.reset_launches()
+        mk.reset_launches()
+        ml = step_of(spec)(ml)
+        torch.cuda.synchronize()
+        n += 1
+        wall = time.perf_counter() - t0
+        calls = dict(gk.LAUNCHES, **mk.LAUNCHES)
+        want = expected_ml_launches(cfg, spec, cycles)
+        log(f"  coarse step {n}{' (regrid)' if regrid else ''}: {wall:.4f} s, patch "
+            f"{spec.ncell}, wrapper calls {calls} (expected {want})")
+        if calls != want:
+            raise AssertionError(f"coarse step {n}: calls {calls} != {want}")
+        for lev in ml:
+            check_state(lev)
+        if timed:
+            walls.append((regrid, wall, spec.ncell))
+        return ml, spec
+
+    # a warm-up and steps - 1 timed coarse steps (one regrid among them),
+    # then the checks on the patch they ended on, then the last timed step,
+    # which regrids again
+    for k in range(steps):
+        ml, spec = coarse_step(ml, spec, k > 0)
+        if k == 0:
+            mass0 = composite_mass(cfg, spec, ml)
+    step = step_of(spec)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(ml)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log(f"  one more coarse step on the patch {spec.ncell} (no regrid) under "
+        "set_sync_debug_mode('error'): no host sync")
+    rows = profile_step(lambda: step(ml), card, top=15)
+    dev_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in rows) / 1e3
+    check_profiled_launches(rows, expected_ml_launches(cfg, spec, cycles))
+    cfgs = aml.hierarchy_configs(cfg, [spec])
+    _, umacs = aml.advance_hierarchy_subcycled((ml.crse, ml.fine), cfg, [spec], cycles,
+                                               return_umacs=True)
+    divs = level_mac_divergence(cfgs, ml, umacs)
+    log(f"  MAC divergence over umax/dx: coarse {divs[0]:.3e}, fine (subcycle average) "
+        f"{divs[1]:.3e}")
+    if not max(divs) < 1e-2:
+        raise AssertionError(f"MAC divergence after {cycles} V-cycles: {divs}")
+    log(f"  device time of a coarse step on the patch {spec.ncell}: {dev_ms:.3f} ms; phase "
+        f"12's single-level RT3D (the same finest dx) {rt3d_device_ms:.3f} ms a step, "
+        f"{2 * rt3d_device_ms:.3f} ms for the two steps of the same physical time ({card})")
+    profiled = spec.ncell
+    ml, spec = coarse_step(ml, spec, True)
+    drift = (composite_mass(cfg, spec, ml) - mass0) / mass0
+    plain_walls = [w for r, w, _ in walls if not r]
+    s_step = sum(plain_walls) / len(plain_walls)
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  {s_step:.6f} s per coarse step without a regrid (host clock; patches "
+        f"{[c for r, _, c in walls if not r]}), with a regrid "
+        f"{[(round(w, 6), c) for r, w, c in walls if r]}; composite mass drift over "
+        f"{n - 1} steps {drift:.3e} (f32 state, f64 sums); max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB ({card})")
+    return {"amr_rt3d_patch": [list(spec.lo), list(spec.ncell)], "amr_rt3d_s_per_step": s_step,
+            "amr_rt3d_device_ms": dev_ms, "amr_rt3d_profiled_patch": list(profiled),
+            "amr_rt3d_max_mem_gib": peak / 2**30, "amr_rt3d_mass_drift": drift,
+            "amr_rt3d_mac_div": divs,
+            "amr_rt3d_regrid_s": [(w, list(c)) for r, w, c in walls if r]}, (cfg, ml, spec)
+
+
+def phase_amr_kernels(dev, gk, mk, card, cfg, ml, spec, cycles=4):
+    from iamr_tpu_torch.amr import multilevel as aml
+    from iamr_tpu_torch.ns import advance as adv
+
+    log(f"phase 23b: the kernels on the fine level's ({spec.ncell}) captured calls and on a "
+        "captured FAC sync solve, kernel vs plain (K1/K2 bit for bit; MG to MG_TOL)")
+    fine = tuple(spec.ncell)
+    nodes = tuple(x + 1 for x in fine)
+    in_sync = [False]
+    orig_fac = aml.sync_project_composite
+
+    def fac(*a, **k):
+        in_sync[0] = True
+        try:
+            return orig_fac(*a, **k)
+        finally:
+            in_sync[0] = False
+
+    def cell_key(args, kw):
+        if tuple(args[0].shape) == fine and args[9] > 0 and args[10]:
+            return "fine_cell_mac" if args[4] == 0.0 else "fine_cell_cn"
+        return None
+
+    def nodal_key(args, kw):
+        if tuple(args[0].shape) == nodes and args[6] > 0 and args[7]:
+            return "fac_nodal" if in_sync[0] else "fine_nodal"
+        return None
+
+    aml.sync_project_composite = fac
+    try:
+        kept = capture_calls(lambda: aml.advance_two_level_subcycled(ml, cfg, spec, cycles), [
+            (gk, "extrap_plm", lambda a, k: "extrap_plm" if tuple(a[4]) == fine else None),
+            (adv, "godunov_plm_multi",
+             lambda a, k: "godunov_plm_multi" if tuple(a[5]) == fine else None),
+            (mk, "cell_smooth", cell_key), (mk, "nodal_jacobi", nodal_key)])
+    finally:
+        aml.sync_project_composite = orig_fac
+    missing = {"extrap_plm", "godunov_plm_multi", "fine_cell_mac", "fine_cell_cn", "fine_nodal",
+               "fac_nodal"} - set(kept)
+    if missing:
+        raise AssertionError(f"the coarse step made no such fine-level call: {missing}")
+    out = {}
+    for name, kern, plain in (("extrap_plm", gk.extrap_plm, gk.extrap_plm_ref),
+                              ("godunov_plm_multi", gk.godunov_plm_multi,
+                               gk.godunov_plm_multi_ref)):
+        args, kw = kept[name]
+        got, ref = kern(*args, **kw), plain(*args, **kw)
+        pairs = list(zip(got, ref)) if name == "extrap_plm" else list(zip(flat(got), flat(ref)))
+        check_f32(f"{name} fine level {fine}", pairs, gk)
+        if not all(torch.equal(g, r) for g, r in pairs):
+            raise AssertionError(f"{name}: not bit for bit on the fine level's inputs")
+        k_ms, p_ms = timed_pair(lambda: kern(*args, **kw), lambda: plain(*args, **kw))
+        log(f"  {name} fine level: {k_ms:.4f} ms, plain {p_ms:.4f} ms, bit for bit ({card})")
+        out[name] = k_ms
+    mac_args = kept["fine_cell_mac"][0]
+    log(f"  the fine MAC call's BC kinds lo {mac_args[7]} hi {mac_args[8]} (1 = Dirichlet: "
+        "the coarse-fine sides)")
+    for key, (err, k_ms, p_ms, _) in mg_pairs_on_step(
+            "AMR", kept, mk, torch.float32, card,
+            keys=("fine_cell_mac", "fine_cell_cn", "fine_nodal", "fac_nodal")).items():
+        out[key] = k_ms
+    return {f"amr_{k}_ms": v for k, v in out.items()}
+
+
+def ml_gpu_vs_cpu(label, cfg, dev, cycles, specs, subcycle=True, ebs=None, nparticles=0,
+                  steps=2):
+    """A hierarchy (specs nested from cfg's level) started on both devices
+    (initialize without pressure iterations, the finer levels interpolated
+    from the coarser; ebs: a HierarchyEB per device), compared; a seeded
+    1e-3 velocity perturbation on every level of the CPU's, copied to the
+    card; `steps` coarse steps on each (two levels: make_two_level_step,
+    with nparticles particles make_two_level_step_with_particles; more:
+    advance_hierarchy_subcycled), compared on every field of every level
+    (and the particles) to 1e-10 of max|CPU|."""
+    from iamr_tpu_torch.amr import multilevel as aml
+    from iamr_tpu_torch.ns import driver
+    from iamr_tpu_torch.ns.particles import from_positions
+
+    cpu = torch.device("cpu")
+    cfgs = aml.hierarchy_configs(cfg, specs)
+    starts = []
+    for w, e in zip((cpu, dev), ebs or (None, None)):
+        sts = [driver.initialize(cfg, cycles, w, init_iters=0, eb=e.level0 if e else None)]
+        for lev, sp in enumerate(specs):
+            f = aml.init_fine_from_coarse(cfgs[lev], sp, sts[-1])
+            sts.append(f._replace(vel=f.vel * e.fine(sp).fluid) if e else f)
+        starts.append(sts)
+    rng = np.random.RandomState(3)
+    cpu_sts = [st._replace(vel=st.vel + torch.as_tensor(1e-3 * rng.randn(*st.vel.shape)))
+               for st in starts[0]]
+    to = lambda st: type(st)(*[None if t is None else t.to(dev) for t in st])
+    states = [cpu_sts, [to(st) for st in cpu_sts]]
+    parts = [None, None]
+    if nparticles:
+        pos = np.random.RandomState(5).uniform(-0.5, 0.5, (nparticles, cfg.dim))
+        parts = [from_positions(pos, w, torch.float64) for w in (cpu, dev)]
+    for i, e in enumerate(ebs or (None, None)):
+        if len(specs) > 1:
+            fn = lambda sts, _: (list(aml.advance_hierarchy_subcycled(sts, cfg, specs, cycles)),
+                                 None)
+        elif nparticles:
+            f2 = aml.make_two_level_step_with_particles(cfg, specs[0], cycles, subcycle)
+            fn = lambda sts, p, f2=f2: (lambda o: (list(o[0]), o[1]))(f2(aml.MLState(*sts), p))
+        else:
+            f2 = aml.make_two_level_step(cfg, specs[0], cycles, subcycle,
+                                         ebs=[e.level0, e.fine(specs[0])] if e else None)
+            fn = lambda sts, _, f2=f2: (list(f2(aml.MLState(*sts))), None)
+        for _ in range(steps):
+            states[i], parts[i] = fn(states[i], parts[i])
+    worst = 0.0
+    for stage, pair in (("start", starts), (f"{steps} steps", states)):
+        for lev, (ref_st, got_st) in enumerate(zip(*pair)):
+            for k in ref_st._fields:
+                ref, got = getattr(ref_st, k), getattr(got_st, k)
+                if ref is None and got is None:
+                    continue
+                rel = rel_err(got.cpu(), ref)
+                worst = max(worst, rel)
+                if not rel <= 1e-10:
+                    raise AssertionError(f"{label} {stage}: level {lev} {k} differs: {rel}")
+    if nparticles:
+        rel = rel_err(parts[1].pos.cpu(), parts[0].pos)
+        worst = max(worst, rel)
+        if not (rel <= 1e-10 and torch.equal(parts[1].alive.cpu(), parts[0].alive)):
+            raise AssertionError(f"{label}: the particles differ: {rel}")
+    log(f"  {label}, fixed_mg_cycles={cycles}: max rel diff {worst:.3e} over every field of "
+        f"{len(specs) + 1} levels (limit 1e-10)")
+    return worst
+
+
+SEEDED_RT = 919
+
+
+def seeded_rt(cfg, X, fields):
+    """Rayleigh-Taylor's density and tracer with a smooth seeded velocity
+    (a few random Fourier modes): no face of the first steps on a Riemann
+    tie, where the two devices' roundoff could pick differently."""
+    frac = 0.5 * (1.0 + np.tanh((X[-1] - 0.5) / 0.05))
+    fields["rho"][...] = 1.0 + frac
+    fields["trac"][0] = frac
+    rng = np.random.RandomState(11)
+    L = [h - l for l, h in zip(cfg.geom.prob_lo, cfg.geom.prob_hi)]
+    for d in range(cfg.dim):
+        for _ in range(3):
+            k = rng.randint(1, 3, size=cfg.dim)
+            arg = sum(2 * np.pi * k[e] * X[e] / L[e] for e in range(cfg.dim))
+            fields["vel"][d] += 0.5 * rng.randn() * np.sin(arg + 2 * np.pi * rng.rand())
+
+
+def phase_gpu_cpu_amr(dev):
+    from iamr_tpu_torch import plugins
+    from iamr_tpu_torch.amr.hierarchy import LevelSpec
+    from iamr_tpu_torch.amr.tagging import parse_refinement_indicators
+    from iamr_tpu_torch.eb.geom import psi_from_inputs
+    from iamr_tpu_torch.ns import driver
+    from iamr_tpu_torch.ns.state import config_from_inputs
+
+    log("phase 24: AMR, GPU (kernels) vs CPU (plain), f64, initialize + 2 coarse steps")
+    out = {}
+    f64 = "ns.dtype=float64"
+    rt2 = rt_config((32, 64), "float64", dev, "amr.max_level=1")
+    for sub in (True, False):
+        out[f"rt2d_sub{int(sub)}"] = ml_gpu_vs_cpu(
+            f"RT 2D 32x64 two-level {'subcycled' if sub else 'composite'}", rt2, dev, 4,
+            [driver.default_fine_spec(rt2)], subcycle=sub)
+    rt3 = rt_config((16, 16, 32), "float64", dev, "amr.max_level=1")
+    out["rt3d"] = ml_gpu_vs_cpu("RT3D 16x16x32 two-level", rt3, dev, 4,
+                                [driver.default_fine_spec(rt3)])
+    hs = example_config("inputs.3d.hotspot", dev, "amr.n_cell=16 16 16", f64, "amr.max_level=1")
+    out["hotspot"] = ml_gpu_vs_cpu("HotSpot 3D 16^3 two-level (do_temp)", hs, dev, 4,
+                                   [driver.default_fine_spec(hs)])
+    pp = example_pp("inputs.2d.flow_past_cylinder", *EB_SMALL[2], f64, "amr.max_level=1")
+    fpc = config_from_inputs(pp, device=dev)
+    ebs = [driver.HierarchyEB(psi_from_inputs(pp, 2), fpc, w) for w in (torch.device("cpu"), dev)]
+    spec = driver.fine_spec_from_tags(fpc, None, None, ebs[0], True)[0]
+    out["eb"] = ml_gpu_vs_cpu(f"flow past a cylinder 2D 32x16 two-level EB (patch {spec})", fpc,
+                              dev, 4, [spec], ebs=ebs)
+    hit = example_config("inputs.3d.hit_forced", dev, "amr.n_cell=16 16 16", f64,
+                         "amr.max_level=1")
+    out["hit_particles"] = ml_gpu_vs_cpu("HIT 16^3 two-level, 256 particles", hit, dev, 4,
+                                         [driver.default_fine_spec(hit)], nparticles=256)
+    rt2_3 = rt_config((32, 64), "float64", dev, "amr.max_level=2")
+    specs = [LevelSpec(lo=(16, 32), ncell=(32, 64)), LevelSpec(lo=(16, 32), ncell=(32, 64))]
+    out["rt2d_3lev"] = ml_gpu_vs_cpu("RT 2D 32x64 three-level (nested specs)", rt2_3, dev, 4,
+                                     specs)
+    # a tagged run that regrids (run_multilevel on each device)
+    plugins.problem_ic(SEEDED_RT)(seeded_rt)
+    try:
+        pp = example_pp("inputs.2d.rayleigh_taylor", "amr.n_cell=32 64", f64, "amr.max_level=1",
+                        f"prob.probtype={SEEDED_RT}", "amr.refinement_indicators=denerr",
+                        "amr.denerr.field_name=density",
+                        "amr.denerr.adjacent_difference_greater=0.05")
+        runs = []
+        for w in (torch.device("cpu"), dev):
+            cfg = config_from_inputs(pp, device=w)
+            runs.append(driver.run_multilevel(cfg, max_steps=4, fixed_mg_cycles=4, subcycle=True,
+                                              error_tags=parse_refinement_indicators(pp),
+                                              regrid_int=2, device=w))
+    finally:
+        plugins.PROBLEM_ICS.pop(SEEDED_RT)
+    worst = 0.0
+    for lev, (a, b) in enumerate(zip(*runs)):
+        if a.rho.shape != b.rho.shape:
+            raise AssertionError(f"tagged run: level {lev} shapes {a.rho.shape} {b.rho.shape}")
+        for k in a._fields:
+            if getattr(a, k) is not None:
+                worst = max(worst, rel_err(getattr(b, k).cpu(), getattr(a, k)))
+    if not worst <= 1e-10:
+        raise AssertionError(f"tagged RT 2D run: GPU vs CPU {worst}")
+    log(f"  tagged RT 2D 32x64, regrid every 2 steps, 4 steps: max rel diff {worst:.3e} "
+        f"(fine patch {tuple(runs[0].fine.rho.shape)})")
+    out["tagged"] = worst
+    return max(out.values())
+
+
+def phase_amr_cli(card, cells=(32, 32, 64)):
+    """Started before phase 24; finish_amr_cli ends it."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_amr_")
+    inputs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", AMR_RT3D)
+    over = ["amr.n_cell=" + " ".join(map(str, cells)), "max_step=4", "amr.check_int=2",
+            "amr.plot_int=4", "amr.checkpoint_format=amrex", "ns.dtype=float64"]
+    log(f"phase 25: python -m iamr_tpu_torch examples/{AMR_RT3D} {' '.join(over)} "
+        "(f64: the inputs' tolerance-mode solves converge), started (beside phase 24)")
+    a = os.path.join(tmp, "amr")
+    return CliRun(inputs, over, a, f"two-level RT {cells}"), (inputs, over, tmp, a)
+
+
+def finish_amr_cli(started, card):
+    import shutil
+
+    run, (inputs, over, tmp, a) = started
+    runs = [run]
+    try:
+        stdout, secs, calls = run.finish(card, " (beside phase 24)")
+        if min(calls["extrap_plm"], calls["godunov_plm_multi"], calls["mg_cell_gsrb"],
+               calls["mg_nodal_jacobi"]) < 1:
+            raise AssertionError(f"AMR CLI kernel calls {calls}")
+        regrids = re.findall(r"^REGRID .*$", stdout, re.M)
+        log(f"  regrids: {regrids}")
+        for name in ("chk00002", "chk00004", "plt00004"):
+            with open(os.path.join(a, name, "Header")) as f:
+                head = f.read().split("\n")
+            levels = int(head[4]) if name.startswith("chk") else int(
+                head[4 + int(head[1])])
+            if levels != 1:
+                raise AssertionError(f"{name}: finest level {levels}, not 1")
+        b = os.path.join(tmp, "amr_restart")
+        runs.append(CliRun(inputs, over + [f"amr.restart={os.path.join(a, 'chk00002')}"], b,
+                           "two-level RT restart from chk00002"))
+        _, secs_r, calls_r = runs[-1].finish(card)
+        same_files(os.path.join(a, "chk00004"), os.path.join(b, "chk00004"))
+        same_files(os.path.join(a, "plt00004"), os.path.join(b, "plt00004"))
+        log("  the restart's chk00004 (two levels, AMReX format) and plt00004 equal the "
+            "straight run's byte for byte")
+    finally:
+        for r in runs:
+            r.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"amr_cli_s": secs, "amr_cli_restart_s": secs_r}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -2198,6 +2668,18 @@ def main() -> int:
         mg_metrics.update(timed(finish_eb_cli, eb_cli, smi))
     finally:
         eb_cli[0].kill()
+    amr_metrics, amr_state = timed(phase_amr_rt3d, dev, gk, mk, smi,
+                                   mg_metrics["rt3d_device_ms"])
+    mg_metrics.update(amr_metrics)
+    mg_metrics.update(timed(phase_amr_kernels, dev, gk, mk, smi, *amr_state))
+    del amr_state
+    # the AMR CLI run shares the card with phase 24, which times nothing
+    amr_cli = phase_amr_cli(smi)
+    try:
+        mg_metrics["amr_gpu_cpu_rel"] = timed(phase_gpu_cpu_amr, dev)
+        mg_metrics.update(timed(finish_amr_cli, amr_cli, smi))
+    finally:
+        amr_cli[0].kill()
     log(f"metrics ({smi}): {json.dumps(mg_metrics)}")
     log(f"total {time.perf_counter() - t_start:.1f} s after the interpreter started")
 

@@ -3,7 +3,9 @@
 The *_from_numpy functions take host arrays (np.asarray of the JAX side's
 fields) and return the port's object on `device`, so a test can feed both
 packages the same state; state_to_numpy goes the other way, and the
-checkpoint writers use it. Nothing here imports JAX.
+checkpoint writers use it. hierarchy_from_numpy and hierarchy_to_numpy
+carry an AMR hierarchy (per-level states and the LevelSpecs nesting them)
+across the same way. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from iamr_tpu_torch.amr.hierarchy import LevelSpec
 from iamr_tpu_torch.ns.forcing_hit import HITForcing
 from iamr_tpu_torch.ns.particles import Particles, from_positions
 from iamr_tpu_torch.ns.state import NSState
@@ -40,6 +43,30 @@ def state_to_numpy(state: NSState):
     state_from_numpy and the JAX package's NSState(**...) take back."""
     return {k: None if v is None else v.detach().cpu().numpy()
             for k, v in state._asdict().items()}
+
+
+def spec_from_numpy(spec) -> LevelSpec:
+    """The port's LevelSpec from any object or mapping with lo, ncell and
+    ratio."""
+    get = spec.get if isinstance(spec, dict) else lambda k: getattr(spec, k)
+    return LevelSpec(lo=tuple(int(x) for x in get("lo")),
+                     ncell=tuple(int(x) for x in get("ncell")), ratio=int(get("ratio")))
+
+
+def hierarchy_from_numpy(states, specs, device, dtype: Optional[torch.dtype] = None):
+    """(the port's per-level NSStates, LevelSpecs) from per-level states as
+    state_from_numpy takes them (level 0 first) and the specs nesting level
+    k + 1 in level k (objects or mappings with lo, ncell, ratio)."""
+    return ([state_from_numpy(s, device, dtype) for s in states],
+            [spec_from_numpy(sp) for sp in specs])
+
+
+def hierarchy_to_numpy(states, specs):
+    """(per-level {field: host array} as state_to_numpy gives them, per-level
+    {"lo", "ncell", "ratio"} of the specs): what hierarchy_from_numpy and
+    the JAX package's NSState(**...) and LevelSpec(**...) take back."""
+    return ([state_to_numpy(s) for s in states],
+            [{"lo": tuple(sp.lo), "ncell": tuple(sp.ncell), "ratio": sp.ratio} for sp in specs])
 
 
 def hit_from_numpy(tables) -> HITForcing:

@@ -36,7 +36,10 @@ requires) and EB (not with RZ or use_forces_in_trans, as in the JAX
 package), with either the spectral (FFT) solvers of an all-periodic
 uniform-density run (not under LES, RZ or EB) or the multigrid solvers
 (cell red-black Gauss-Seidel, FEM nodal Jacobi), to tolerance or for a
-fixed number of V-cycles. Multi-box levels are not ported. The step runs
+fixed number of V-cycles. A fine AMR level takes its ghost cells and its
+solvers' coarse-fine BCs from the caller's provider (bcp, a
+CoarseFineBCProvider) and, with return_aux, returns what the flux
+registers and the sync need. Multi-box levels are not ported. The step runs
 eagerly on the tensors' device; in
 fixed-cycle or spectral mode it reads nothing back to the host (tolerance
 mode reads one residual norm per V-cycle; the Sigma model's eigenvalue
@@ -53,9 +56,10 @@ from iamr_tpu_torch import plugins
 from iamr_tpu_torch.eb.redist import eb_aofs, set_body_state, state_redist_geometry
 from iamr_tpu_torch.ns.bcprovider import PhysBCProvider
 from iamr_tpu_torch.ns.forcing_hit import HITForcing
-from iamr_tpu_torch.ns.les import eddy_viscosity_faces, tensor_cross_terms
+from iamr_tpu_torch.ns.les import eddy_viscosity_faces, tensor_cross_fluxes, tensor_cross_terms
 from iamr_tpu_torch.ns.particles import advect_with_umac
 from iamr_tpu_torch.ns.state import NSConfig, NSState
+from iamr_tpu_torch.ops import mg
 from iamr_tpu_torch.ops.godunov import advect_field, extrap_vel_to_faces
 from iamr_tpu_torch.ops.godunov_kernels import godunov_plm_multi
 from iamr_tpu_torch.parallel.reduce import invariant_mean
@@ -223,9 +227,20 @@ def advance(
     spectral: bool = False,
     eb=None,
     eb_redist=None,
+    return_aux: bool = False,
 ):
     """One timestep: consumes state^n, returns state^{n+1} (and the
-    projected MAC velocities with return_umac). eb: the level's EBData
+    projected MAC velocities with return_umac). bcp: the level's
+    boundary-condition provider (default PhysBCProvider(cfg); a fine AMR
+    level passes a CoarseFineBCProvider). return_aux: return (state, aux)
+    instead, aux = {"umac", "mac_phi", "flux_rho", "flux_trac", "flux_vel",
+    "vflux_vel", "vflux_trac"}: the projected MAC velocities and potential,
+    the advective face fluxes of density, tracers and velocity (K2's under
+    3D PLM) and the CN viscous face fluxes of velocity (None without
+    viscosity; with the LES cross fluxes) and of each diffused tracer
+    (None per tracer that is not), the viscous ones None under EB, as in
+    the JAX package; for the coarse-fine flux registers and the sync of AMR
+    and for particles. eb: the level's EBData
     (module docstring); use_forces_in_trans with it raises, as the
     reference aborts. eb_redist: redist_geometry(cfg, eb) where the caller
     keeps it across steps (formed here when not given).
@@ -316,13 +331,15 @@ def advance(
         mac_divu = divu_src + 0.5 * dt * state.dsdt
     if cfg.do_mac_proj:
         mac_bc, mac_bvals = bcp.mac_bc()
-        umac, _, _ = mac_project(
+        umac, mac_phi, _ = mac_project(
             umac, rho, cfg.dom, dx, divu_src=mac_divu, rtol=cfg.mac_tol,
             atol=cfg.mac_abs_tol, fixed_cycles=fixed_mg_cycles, bc=mac_bc, bvals=mac_bvals,
             spectral_beta0=(1.0 / invariant_mean(rho)) if spectral else None, rz=rz, eb=eb,
         )
-    # (ns.do_mac_proj = 0, a debugging switch: advect with the predicted
-    # MAC velocities)
+    else:
+        # ns.do_mac_proj = 0, a debugging switch: advect with the predicted
+        # MAC velocities
+        mac_phi = torch.zeros(tuple(cfg.geom.ncell), dtype=cfg.tdtype, device=dev)
     umac_g = bcp.grow_umac(umac)
 
     # every advected field filled up front, in the order vel x dim (forced;
@@ -384,7 +401,7 @@ def advance(
         rho_new = set_body_state(rho_new, eb) + eb.covered * rho
     rho_half = 0.5 * (rho + rho_new)
 
-    trac_new = []
+    trac_new, vflux_trac = [], []
     for t in range(cfg.ntrac):
         s = trac[t]
         s_star = s - dt * aofs[dim + 1 + t]
@@ -406,6 +423,13 @@ def advance(
             )
         if eb is not None:
             s_star = eb.fluid * s_star + eb.covered * s
+        vflux = None
+        if return_aux and coef > 0.0 and eb is None:
+            # the CN viscous flux -beta grad((1 - theta) s^n + theta s^{n+1})
+            # of the viscous flux registers
+            th = cfg.be_cn_theta
+            vflux = mg.get_fluxes((1.0 - th) * s + th * s_star, bcoef, 1.0, dx, sbc, bvals=sbv)
+        vflux_trac.append(vflux)
         trac_new.append(s_star)
     trac_new = torch.stack(trac_new)
 
@@ -487,6 +511,21 @@ def advance(
             )[0])
         vel_star = torch.stack(comps)
 
+    vflux_vel = None
+    if return_aux and viscous and eb is None:
+        # the CN viscous fluxes of the velocity registers; under LES with
+        # the transpose (cross) part, the full stress flux mu (grad u +
+        # grad u^T) (computeExtensiveFluxes)
+        th = cfg.be_cn_theta
+        u_th = (1.0 - th) * vel + th * vel_star
+        vflux_vel = []
+        for c in range(dim):
+            vbc, vbv = bcp.vel_diff_bc(c)
+            vflux_vel.append(mg.get_fluxes(u_th[c], mf, 1.0, dx, vbc, bvals=vbv))
+        if cfg.do_les:
+            xf = tensor_cross_fluxes(cfg, bcp, u_th, mf)
+            vflux_vel = [tuple(f + x for f, x in zip(vflux_vel[c], xf[c])) for c in range(dim)]
+
     # --- 6. nodal projection ---------------------------------------------
     divu_new = _thermal_divu(cfg, bcp, temp_new, rho_new)
     nodal_bc_, nodal_phi_bc = bcp.nodal()
@@ -513,6 +552,14 @@ def advance(
     dt_next = est_time_step(cfg, new_state, hit)
     dt_next = torch.minimum(dt_next, cfg.change_max * dt)
     new_state = new_state._replace(dt=dt_next)
+    if return_aux:
+        return new_state, {
+            "umac": umac, "mac_phi": mac_phi, "flux_rho": adv[dim][0],
+            "flux_trac": tuple(adv[dim + 1 + t][0] for t in range(cfg.ntrac)),
+            "flux_vel": tuple(adv[c][0] for c in range(dim)),
+            "vflux_vel": tuple(vflux_vel) if vflux_vel is not None else None,
+            "vflux_trac": tuple(vflux_trac),
+        }
     if return_umac:
         return new_state, umac
     return new_state

@@ -1,5 +1,5 @@
-"""Single-level initialisation, time loop and run from an inputs file
-(counterpart of iamr_tpu/ns/driver.py).
+"""Initialisation, time loops and runs from an inputs file (counterpart of
+iamr_tpu/ns/driver.py).
 
 initialize: initial conditions, the initial velocity projection (nodal
 multigrid, init_vel_iter times), the hydrostatic initial pressure of gravity
@@ -12,8 +12,16 @@ particles.*, and IOHooks' plotfiles, checkpoints, monitors and run logs.
 RZ runs project with radius weights and start without the hydrostatic
 pressure, as in the JAX package; EB runs (eb2.geom_type, the geometry of
 eb/geom.py) project with volume-fraction weights and keep the covered
-cells' velocity 0. AMR (amr.max_level >= 1, amr.regrid_file) raises
-NotImplementedError.
+cells' velocity 0.
+
+AMR on single-box levels: run_multilevel (two levels, amr.max_level = 1:
+fixed, or tagged and regridded every amr.regrid_int steps; subcycled or
+composite; EB on both levels; particles; checkpoints and restarts) and
+run_hierarchy (amr.max_level >= 2, nested patches from amr.regrid_file or
+centred ones). A level of more than one box raises NotImplementedError
+(multi-box (union) levels are not ported): a multi-box amr.regrid_file
+level, a subcycled non-EB regrid whose clustering gives several boxes, and
+the dynamic regrid of amr.max_level >= 2.
 """
 
 from __future__ import annotations
@@ -27,10 +35,38 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from iamr_tpu_torch.amr.hierarchy import LevelSpec, read_fixed_grids
+from iamr_tpu_torch.amr.multilevel import (
+    MLState,
+    advance_hierarchy_subcycled,
+    hierarchy_configs,
+    init_fine_from_coarse,
+    make_fine_config,
+    make_two_level_step,
+    make_two_level_step_with_particles,
+    post_init_press_two_level,
+)
+from iamr_tpu_torch.amr.sync import UNION
+from iamr_tpu_torch.amr.tagging import (
+    apply_outflow_tag_policy,
+    cluster_to_patch,
+    cluster_to_patches,
+    parse_refinement_indicators,
+    regrid_fine_state,
+    tag_cells,
+)
 from iamr_tpu_torch.config.parmparse import ParmParse
-from iamr_tpu_torch.eb.geom import eb_from_inputs
-from iamr_tpu_torch.io.amrex_chk import write_checkpoint_amrex
-from iamr_tpu_torch.io.checkpoint import load_checkpoint, load_particles, save_checkpoint, save_particles
+from iamr_tpu_torch.eb.geom import build_eb_geometry, eb_from_inputs, psi_from_inputs
+from iamr_tpu_torch.io.amrex_chk import write_checkpoint_amrex, write_checkpoint_amrex_levels
+from iamr_tpu_torch.io.checkpoint import (
+    load_boxlists,
+    load_checkpoint,
+    load_checkpoint_ml,
+    load_particles,
+    save_checkpoint,
+    save_checkpoint_ml,
+    save_particles,
+)
 from iamr_tpu_torch.io.plotfile import write_plotfile
 from iamr_tpu_torch.ns.advance import (
     advance,
@@ -50,6 +86,7 @@ from iamr_tpu_torch.ns.derive import (
     sum_integrated_quantities,
 )
 from iamr_tpu_torch.ns.particles import (
+    advect_with_umac_levels,
     from_positions,
     particle_count,
     read_ascii_init_file,
@@ -364,10 +401,8 @@ def run(
     to particle_out at the end. With ns.debug (and no particles) each
     step's state and MAC velocities go through ns/checks.py::run_debug_checks.
     With verbose, each step prints its time, dt, max|u| and its seconds on
-    the host clock. One level only: cfg.max_level >= 1 raises."""
-    if cfg.max_level >= 1:
-        raise NotImplementedError(
-            f"amr.max_level = {cfg.max_level}: AMR is not ported (single level only)")
+    the host clock. One level, whatever cfg.max_level says, as the JAX
+    package's run: run_multilevel and run_hierarchy run AMR."""
     if state is None:
         state = initialize(cfg, fixed_mg_cycles, device, eb=eb)
     sp = eb is None and spectral_eligible(cfg, state.rho)
@@ -428,14 +463,392 @@ def run(
     return state
 
 
-def _refuse_unported(pp: ParmParse, cfg: NSConfig):
-    """NotImplementedError, naming the key, for the inputs of what is not
-    ported: AMR (amr.max_level >= 1, amr.regrid_file)."""
-    if cfg.max_level >= 1:
+def default_fine_spec(cfg: NSConfig) -> LevelSpec:
+    """The fine patch of amr.fixed_fine_patch (lo..., size...), or the
+    centred patch over the central half of the domain."""
+    dim, r = cfg.dim, cfg.ref_ratio
+    if cfg.fine_patch and len(cfg.fine_patch) == 2 * dim:
+        return LevelSpec(lo=tuple(cfg.fine_patch[:dim]), ncell=tuple(cfg.fine_patch[dim:]),
+                         ratio=r)
+    n = cfg.geom.ncell
+    return LevelSpec(lo=tuple(r * (x // 4) for x in n), ncell=tuple(r * (x // 2) for x in n),
+                     ratio=r)
+
+
+def write_plotfile_for_hierarchy(cfg: NSConfig, spec: LevelSpec, ml: MLState, path: str,
+                                 step: int):
+    """A two-level AMR plotfile (Level_0 and Level_1)."""
+    write_plotfile(path, cfg.geom, _plot_fields(cfg, ml.crse), time=float(ml.crse.time),
+                   level_steps=step,
+                   fine_levels=[(_plot_fields(make_fine_config(cfg, spec), ml.fine), spec.lo,
+                                 spec.ratio)])
+
+
+def _save_levels(cfg, path, states, specs, step, fmt, boxlists, particles):
+    """A multi-level checkpoint in amr.checkpoint_format (npz, the default,
+    or amrex), with the particles."""
+    if fmt == "amrex":
+        write_checkpoint_amrex_levels(path, states, specs, cfg, step)
+    else:
+        save_checkpoint_ml(path, states, specs, step, boxlists=boxlists)
+    if particles is not None:
+        save_particles(path, particles)
+
+
+def _refuse_boxes(boxlist, what: str):
+    """NotImplementedError for a level of more than one box."""
+    if boxlist is not None and len(boxlist) > 1:
+        raise NotImplementedError(f"{what}: {len(boxlist)} boxes on one level; {UNION}")
+
+
+class HierarchyEB:
+    """Each level's EB geometry from one fluid-positive implicit function
+    (the reference builds EB2 per level): level0, and fine(spec), built
+    again when a regrid moves the patch."""
+
+    def __init__(self, psi, cfg: NSConfig, device):
+        self.psi, self.cfg, self.device = psi, cfg, device
+        self.level0 = build_eb_geometry(psi, cfg.geom, dtype=cfg.dtype, device=device)
+        self._fine = {}
+
+    def fine(self, spec: LevelSpec):
+        if spec not in self._fine:
+            self._fine.clear()
+            self._fine[spec] = build_eb_geometry(self.psi, make_fine_config(self.cfg, spec).geom,
+                                                 dtype=self.cfg.dtype, device=self.device)
+        return self._fine[spec]
+
+
+def fine_spec_from_tags(cfg: NSConfig, crse: NSState, error_tags=None, ebs=None,
+                        subcycle: bool = False):
+    """(the fine LevelSpec, its box list or None) from the coarse level's
+    tags (a host read): error_tags, and with EB (ebs, a HierarchyEB) and
+    refine_cutcells every cut cell, after the outflow tag policy, clustered
+    by Berger-Rigoutsos. Several boxes make a union level in a subcycled
+    run without EB (the box list, their bounding box as the spec), and
+    their bounding box otherwise; without tags, the default patch."""
+    tags = None
+    if error_tags:
+        tags = tag_cells(cfg, crse, error_tags).cpu().numpy()
+    if ebs is not None and cfg.refine_cutcells:
+        vf = ebs.level0.vfrac.cpu().numpy()
+        cut = (vf > 0.0) & (vf < 1.0)
+        tags = cut if tags is None else (tags | cut)
+    if tags is not None:
+        tags = apply_outflow_tag_policy(cfg, tags, do_refine=cfg.do_refine_outflow,
+                                        do_derefine=cfg.do_derefine_outflow,
+                                        nbuf=cfg.nbuf_outflow)
+        boxes = cluster_to_patches(tags, cfg.ref_ratio)
+        if len(boxes) > 1 and ebs is None and subcycle:
+            lo = tuple(min(b.lo[d] for b in boxes) for d in range(cfg.dim))
+            hi = tuple(max(b.lo[d] + b.ncell[d] for b in boxes) for d in range(cfg.dim))
+            return LevelSpec(lo=lo, ncell=tuple(h - l for l, h in zip(lo, hi)),
+                             ratio=cfg.ref_ratio), tuple(boxes)
+        s = boxes[0] if len(boxes) == 1 else cluster_to_patch(tags, cfg.ref_ratio)
+        if s is not None:
+            return s, None
+    return default_fine_spec(cfg), None
+
+
+def initialize_multilevel(cfg: NSConfig, fixed_mg_cycles=None, device=None, error_tags=None,
+                          subcycle: bool = False, fixed_spec=None, ebs=None):
+    """A fresh two-level start on `device` (default the card, cuda:0):
+    initialize without pressure iterations, the fine patch (fixed_spec, or
+    fine_spec_from_tags; a union level raises NotImplementedError), the
+    fine state interpolated from the coarse one, then the composite
+    initial pressure iterations (post_init_press_two_level); with EB (ebs,
+    a HierarchyEB) the single-level ones instead, the fine velocity zero in
+    covered cells. Returns (MLState, spec)."""
+    device = CUDA if device is None else torch.device(device)
+    eb0 = ebs.level0 if ebs is not None else None
+    crse = initialize(cfg, fixed_mg_cycles, device, init_iters=None if eb0 is not None else 0,
+                      eb=eb0)
+    spec, boxlist = ((fixed_spec, None) if fixed_spec is not None
+                     else fine_spec_from_tags(cfg, crse, error_tags, ebs, subcycle))
+    _refuse_boxes(boxlist, "amr.refinement_indicators (a subcycled regrid)")
+    fine = init_fine_from_coarse(cfg, spec, crse)
+    if eb0 is not None:
+        fine = fine._replace(vel=fine.vel * ebs.fine(spec).fluid)
+    else:
+        crse, fine = post_init_press_two_level(cfg, spec, crse, fine, fixed_mg_cycles)
+    return MLState(crse=crse, fine=fine), spec
+
+
+def regrid_two_level(cfg: NSConfig, ml: MLState, spec: LevelSpec, error_tags, ebs=None,
+                     subcycle: bool = False):
+    """Tag the coarse level again (a host read) and move the fine state onto
+    the new patch where it changed (regrid_fine_state). Returns (MLState,
+    spec); a union level raises NotImplementedError."""
+    new_spec, new_bl = fine_spec_from_tags(cfg, ml.crse, error_tags, ebs, subcycle)
+    _refuse_boxes(new_bl, "amr.refinement_indicators (a subcycled regrid)")
+    if new_spec == spec:
+        return ml, spec
+    return MLState(crse=ml.crse, fine=regrid_fine_state(cfg, spec, new_spec, ml.crse, ml.fine)), \
+        new_spec
+
+
+def run_multilevel(
+    cfg: NSConfig,
+    max_steps: Optional[int] = None,
+    verbose: bool = False,
+    fixed_mg_cycles=None,
+    subcycle: bool = False,
+    error_tags=None,
+    regrid_int: int = 0,
+    plot_int: int = -1,
+    plot_file: str = "plt",
+    fixed_spec=None,
+    particles=None,
+    particle_hooks=None,
+    check_int: int = -1,
+    check_file: str = "chk",
+    restart=None,
+    eb_psi=None,
+    particle_out=None,
+    device=None,
+    checkpoint_format: str = "npz",
+):
+    """A two-level run (amr.max_level = 1) on `device` (default the card,
+    cuda:0), subcycled or composite.
+
+    A fresh start is initialize_multilevel's: the fine patch fixed_spec
+    (amr.regrid_file), else from the tags (fine_spec_from_tags). With
+    error_tags the patch is tagged again every regrid_int steps
+    (regrid_two_level). eb_psi: the fluid-positive implicit function each
+    level builds its EB geometry from (HierarchyEB); the levels then
+    subcycle. Particles advect with the composite MAC velocities.
+    Plotfiles every plot_int steps; checkpoints every check_int steps in
+    checkpoint_format (npz or amrex; the JAX package writes npz whatever
+    the format); restart: a checkpoint of either format (its grids are
+    kept). Returns the MLState, or (MLState, particles)."""
+    device = CUDA if device is None else torch.device(device)
+    ebs = HierarchyEB(eb_psi, cfg, device) if eb_psi is not None else None
+    step0 = 0
+    boxlist = None
+    if restart is not None:
+        states_r, specs_r, step0 = load_checkpoint_ml(str(restart), cfg, device)
+        if specs_r and (fixed_spec is not None or not error_tags):
+            # a fixed-grid run keeps the restored patch; a tagged one tags
+            # again at its regrid cadence
+            fixed_spec = specs_r[0]
+        if particles is not None:
+            particles = load_particles(str(restart), cfg.tdtype, device) or particles
+    if restart is not None and len(states_r) > 1:
+        # resume on the checkpointed grids
+        bl_r = load_boxlists(str(restart))
+        boxlist = tuple(bl_r[0]) if bl_r is not None and bl_r[0] else None
+        _refuse_boxes(boxlist, f"amr.restart={restart}")
+        ml, spec = MLState(crse=states_r[0], fine=states_r[1]), specs_r[0]
+    elif restart is not None:
+        # a single-level checkpoint: the fine level interpolated from it
+        crse = states_r[0]
+        spec, boxlist = ((fixed_spec, None) if fixed_spec is not None
+                         else fine_spec_from_tags(cfg, crse, error_tags, ebs, subcycle))
+        _refuse_boxes(boxlist, "amr.refinement_indicators (a subcycled regrid)")
+        fine = init_fine_from_coarse(cfg, spec, crse)
+        if ebs is not None:
+            fine = fine._replace(vel=fine.vel * ebs.fine(spec).fluid)
+        else:
+            crse, fine = post_init_press_two_level(cfg, spec, crse, fine, fixed_mg_cycles)
+        ml = MLState(crse=crse, fine=fine)
+    else:
+        ml, spec = initialize_multilevel(cfg, fixed_mg_cycles, device, error_tags, subcycle,
+                                         fixed_spec, ebs)
+    step_cache = {}
+
+    def get_step(s):
+        if s not in step_cache:
+            if particles is not None:
+                if ebs is not None:
+                    raise NotImplementedError("EB + particles multilevel not wired "
+                                              "(as in the JAX package)")
+                step_cache[s] = make_two_level_step_with_particles(cfg, s, fixed_mg_cycles,
+                                                                   subcycle=subcycle)
+            else:
+                step_cache[s] = make_two_level_step(
+                    cfg, s, fixed_mg_cycles, subcycle=subcycle,
+                    ebs=[ebs.level0, ebs.fine(s)] if ebs is not None else None)
+        return step_cache[s]
+
+    nmax = max_steps if max_steps is not None else (
+        cfg.max_step if cfg.max_step >= 0 else 10**9)
+    step = step0
+    while step < nmax:
+        if cfg.stop_time >= 0.0 and float(ml.crse.time) >= cfg.stop_time:
+            break
+        if (error_tags and regrid_int > 0 and step > 0 and step % regrid_int == 0
+                and fixed_spec is None):
+            ml, new_spec = regrid_two_level(cfg, ml, spec, error_tags, ebs, subcycle)
+            if new_spec != spec:
+                spec = new_spec
+                if verbose:
+                    print(f"REGRID at step {step}: patch lo={spec.lo} n={spec.ncell} boxes=1")
+        t0 = _time.perf_counter()
+        if particles is not None:
+            ml, particles = get_step(spec)(ml, particles)
+            if particle_hooks is not None:
+                particle_hooks(step + 1, ml.crse, particles)
+        else:
+            ml = get_step(spec)(ml)
+        step += 1
+        if plot_int > 0 and step % plot_int == 0:
+            write_plotfile_for_hierarchy(cfg, spec, ml, f"{plot_file}{step:05d}", step)
+        if check_int > 0 and step % check_int == 0:
+            _save_levels(cfg, f"{check_file}{step:05d}", [ml.crse, ml.fine], [spec], step,
+                         checkpoint_format, [boxlist], particles)
+        if verbose:
+            t, dt, u0, u1 = torch.stack([
+                ml.crse.time, ml.crse.dt, torch.max(torch.abs(ml.crse.vel)),
+                torch.max(torch.abs(ml.fine.vel))]).tolist()
+            print(f"STEP {step} time {t:.6g} dt {dt:.6g} max|u| L0 {u0:.6g} L1 {u1:.6g} "
+                  f"wall {_time.perf_counter() - t0:.6f} s")
+    if particles is not None:
+        if particle_out:
+            write_ascii_particles(str(particle_out), particles)
+        return ml, particles
+    return ml
+
+
+def run_hierarchy(
+    cfg: NSConfig,
+    max_steps: Optional[int] = None,
+    verbose: bool = False,
+    fixed_mg_cycles=None,
+    specs=None,
+    particles=None,
+    particle_hooks=None,
+    check_int: int = -1,
+    check_file: str = "chk",
+    restart=None,
+    error_tags=None,
+    regrid_int: int = 0,
+    particle_out=None,
+    boxlists=None,
+    device=None,
+    checkpoint_format: str = "npz",
+):
+    """A subcycled hierarchy of any depth (amr.max_level >= 2) of nested
+    single-box patches, on `device` (default the card, cuda:0): `specs`
+    (amr.regrid_file), else centred ones (each over the central half of its
+    parent). The levels start from initialize and the coarse state
+    interpolated down. Particles advect with the composite MAC velocities.
+    Checkpoints every check_int steps (npz or amrex); restart from one.
+    Returns the states, or (states, particles).
+
+    boxlists with a level of more than one box, and error_tags with
+    regrid_int > 0 (the dynamic regrid of a hierarchy, regrid_hierarchy,
+    makes multi-box levels), raise NotImplementedError: multi-box (union)
+    levels are not ported."""
+    device = CUDA if device is None else torch.device(device)
+    if error_tags and regrid_int > 0:
         raise NotImplementedError(
-            f"amr.max_level = {cfg.max_level}: AMR is not ported (single level only)")
-    if pp.contains("amr.regrid_file"):
-        raise NotImplementedError("amr.regrid_file: AMR grids are not ported")
+            f"amr.max_level = {cfg.max_level} with amr.regrid_int = {regrid_int}: the dynamic "
+            f"regrid of a hierarchy (regrid_hierarchy) makes multi-box levels; {UNION}")
+    for k, bl in enumerate(boxlists or []):
+        _refuse_boxes(bl, f"level {k + 1}")
+    r = cfg.ref_ratio
+    step0 = 0
+    if restart is not None:
+        states_r, specs, step0 = load_checkpoint_ml(str(restart), cfg, device)
+        boxlists = load_boxlists(str(restart)) or boxlists
+        states = tuple(states_r)
+        if particles is not None:
+            particles = load_particles(str(restart), cfg.tdtype, device) or particles
+    else:
+        if specs is None:
+            specs = []
+            for lev in range(cfg.max_level):
+                n = cfg.geom.ncell if lev == 0 else specs[-1].ncell
+                specs.append(LevelSpec(lo=tuple(r * (x // 4) for x in n),
+                                       ncell=tuple(r * (x // 2) for x in n), ratio=r))
+        states = [initialize(cfg, fixed_mg_cycles, device)]
+        cfgs = hierarchy_configs(cfg, specs)
+        for lev, spec in enumerate(specs):
+            states.append(init_fine_from_coarse(cfgs[lev], spec, states[-1]))
+        states = tuple(states)
+    for k, bl in enumerate(boxlists or []):
+        _refuse_boxes(bl, f"amr.restart={restart}: level {k + 1}")
+    cfgs = hierarchy_configs(cfg, specs)
+    hit = make_hit_forcing(cfg)
+
+    if particles is not None:
+        def step_fn(sts, parts):
+            out, umacs = advance_hierarchy_subcycled(sts, cfg, list(specs), fixed_mg_cycles,
+                                                     hit=hit, return_umacs=True)
+            levels = [(um, c.geom) for um, c in zip(umacs, cfgs)]
+            return out, advect_with_umac_levels(parts, levels, sts[0].dt)
+    else:
+        def step_fn(sts):
+            return advance_hierarchy_subcycled(sts, cfg, list(specs), fixed_mg_cycles, hit=hit)
+
+    nmax = max_steps if max_steps is not None else (
+        cfg.max_step if cfg.max_step >= 0 else 10**9)
+    step = step0
+    while step < nmax:
+        if cfg.stop_time >= 0.0 and float(states[0].time) >= cfg.stop_time:
+            break
+        t0 = _time.perf_counter()
+        if particles is not None:
+            states, particles = step_fn(states, particles)
+            if particle_hooks is not None:
+                particle_hooks(step + 1, states[0], particles)
+        else:
+            states = step_fn(states)
+        step += 1
+        if check_int > 0 and step % check_int == 0:
+            _save_levels(cfg, f"{check_file}{step:05d}", list(states), list(specs), step,
+                         checkpoint_format, boxlists, particles)
+        if verbose:
+            t, dt = torch.stack([states[0].time, states[0].dt]).tolist()
+            print(f"STEP {step} time {t:.6g} dt {dt:.6g} levels {len(states)} "
+                  f"wall {_time.perf_counter() - t0:.6f} s")
+    if particles is not None:
+        if particle_out:
+            write_ascii_particles(str(particle_out), particles)
+        return states, particles
+    return states
+
+
+def _specs_from_grids(cfg: NSConfig, grids):
+    """(LevelSpecs, box lists) from amr.regrid_file's per-level boxes (each
+    in the coarser level's index space): specs[k] is level k + 1's bounding
+    box (lo relative to the parent patch, fine index units) and
+    boxlists[k] its boxes in the same units (None for a one-box level)."""
+    r = cfg.ref_ratio
+    dim = cfg.dim
+    out, blists = [], []
+    parent_lo = (0,) * dim
+    for lev_boxes in grids:
+        lo = tuple(min(b[0][d] for b in lev_boxes) for d in range(dim))
+        hi = tuple(max(b[1][d] for b in lev_boxes) for d in range(dim))
+        out.append(LevelSpec(lo=tuple(r * (lo[d] - parent_lo[d]) for d in range(dim)),
+                             ncell=tuple(r * (hi[d] - lo[d]) for d in range(dim)), ratio=r))
+        if len(lev_boxes) > 1:
+            blists.append(tuple(
+                LevelSpec(lo=tuple(r * (b[0][d] - parent_lo[d]) for d in range(dim)),
+                          ncell=tuple(r * (b[1][d] - b[0][d]) for d in range(dim)), ratio=r)
+                for b in lev_boxes))
+        else:
+            blists.append(None)
+        parent_lo = tuple(r * x for x in lo)
+    return out, blists
+
+
+def _refuse_unported(pp: ParmParse, cfg: NSConfig, fixed_grids):
+    """NotImplementedError, naming the key, for inputs that make a level of
+    more than one box: an amr.regrid_file level of several boxes, and the
+    dynamic regrid of amr.max_level >= 2 (amr.refinement_indicators with
+    amr.regrid_int > 0)."""
+    for k, grids in enumerate(fixed_grids or []):
+        if len(grids) > 1:
+            raise NotImplementedError(
+                f"amr.regrid_file: level {k + 1} has {len(grids)} boxes; {UNION}")
+    regrid_int = int(pp.scoped("amr").queryarr("regrid_int", [0])[0])
+    if (cfg.max_level >= 2 and not fixed_grids and regrid_int > 0
+            and parse_refinement_indicators(pp)):
+        raise NotImplementedError(
+            f"amr.max_level = {cfg.max_level} with amr.regrid_int = {regrid_int}: the dynamic "
+            f"regrid of a hierarchy makes multi-box levels; {UNION}")
 
 
 def run_from_inputs(path: str, overrides=(), device=None, **kw):
@@ -449,14 +862,28 @@ def run_from_inputs(path: str, overrides=(), device=None, **kw):
     timestamp_dir and particle_output_file drive tracer particles;
     IOHooks writes the plotfiles, checkpoints and logs. Other keyword
     arguments go to run (max_steps, verbose, fixed_mg_cycles, callback).
-    Returns what run returns."""
+    Returns what run returns.
+
+    amr.max_level >= 1 runs AMR, as the JAX package's: amr.max_level = 1
+    run_multilevel (amr.subcycling_mode None is the composite step, any
+    other mode subcycles; amr.refinement_indicators with amr.regrid_int, or
+    the grids of amr.regrid_file; EB with eb2.*), amr.max_level >= 2
+    run_hierarchy; each with the plotfiles (two levels) and checkpoints of
+    amr.plot_int and amr.check_int, the particles, max_steps, verbose and
+    fixed_mg_cycles. A level of more than one box raises
+    NotImplementedError, naming the key."""
     device = CUDA if device is None else torch.device(device)
     pp = ParmParse.from_file(path, overrides)
     cfg = config_from_inputs(pp, dim_hint=dim_hint_from_path(path), device=device)
-    _refuse_unported(pp, cfg)
+    base = os.path.dirname(os.path.abspath(path))
+    fixed_grids = None
+    rgf = pp.query("amr.regrid_file")
+    if rgf:
+        fixed_grids = read_fixed_grids(os.path.join(base, str(rgf)), cfg.dim)
+    _refuse_unported(pp, cfg, fixed_grids)
     restart = pp.query("amr.restart")
     restart_particles = None
-    if restart:
+    if restart and cfg.max_level == 0:
         kw["state"], kw["step0"] = load_checkpoint(str(restart), cfg, device)
         restart_particles = load_particles(str(restart), cfg.tdtype, device)
     eb = eb_from_inputs(pp, cfg.geom, dtype=cfg.dtype, device=device)
@@ -468,7 +895,7 @@ def run_from_inputs(path: str, overrides=(), device=None, **kw):
     ppart = pp.scoped("particles")
     init_file = ppart.query("particle_init_file")
     if init_file and ppart.query_bool("do_nspc", True):
-        fpath = os.path.join(os.path.dirname(os.path.abspath(path)), str(init_file))
+        fpath = os.path.join(base, str(init_file))
         pos = read_ascii_init_file(fpath, cfg.dim)
         kw["particles"] = (restart_particles if restart_particles is not None
                            else from_positions(pos, device, cfg.tdtype))
@@ -480,4 +907,24 @@ def run_from_inputs(path: str, overrides=(), device=None, **kw):
         pout = ppart.query("particle_output_file")
         if pout:
             kw["particle_out"] = str(pout)
-    return run(cfg, device=device, **kw)
+    if cfg.max_level == 0:
+        return run(cfg, device=device, **kw)
+    amr = pp.scoped("amr")
+    regrid_int = int(amr.queryarr("regrid_int", [0])[0])
+    common = dict(
+        max_steps=kw.get("max_steps"), verbose=kw.get("verbose", False),
+        fixed_mg_cycles=kw.get("fixed_mg_cycles"), particles=kw.get("particles"),
+        particle_hooks=kw.get("particle_hooks"), particle_out=kw.get("particle_out"),
+        check_int=hooks.check_int, check_file=hooks.check_file, restart=restart or None,
+        regrid_int=regrid_int, device=device, checkpoint_format=hooks.checkpoint_format)
+    specs = _specs_from_grids(cfg, fixed_grids)[0] if fixed_grids else None
+    if cfg.max_level >= 2:
+        return run_hierarchy(
+            cfg, specs=specs,
+            error_tags=None if fixed_grids else (parse_refinement_indicators(pp) or None),
+            **common)
+    return run_multilevel(
+        cfg, subcycle=str(amr.query("subcycling_mode", "Auto")).lower() != "none",
+        error_tags=parse_refinement_indicators(pp) or None, plot_int=hooks.plot_int,
+        plot_file=hooks.plot_file, fixed_spec=specs[0] if specs else None,
+        eb_psi=psi_from_inputs(pp, cfg.dim) if eb is not None else None, **common)

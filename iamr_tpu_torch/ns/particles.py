@@ -3,7 +3,9 @@
 Structure of arrays: positions (N, dim) and an alive mask. AdvectWithUmac is
 RK2 midpoint advection with multilinear interpolation of the MAC
 velocities; redistribute wraps periodic positions and retires particles
-that leave through other boundaries. The files: the ascii init file
+that leave through other boundaries. On an AMR hierarchy a particle
+advects with the MAC velocities of the finest level that contains it
+(advect_with_umac_levels). The files: the ascii init file
 (particles.particle_init_file), the Timestamp file and the output file
 (particles.particle_output_file), the same bytes as the JAX package's, and
 the particle_count derive of plotfiles.
@@ -92,6 +94,36 @@ def advect_with_umac(parts: Particles, umac, dt, geom: Geometry) -> Particles:
     mid = _wrap(parts.pos + 0.5 * dt * u1, geom)
     u2 = _interp_mac(umac, mid, geom)
     return redistribute(parts._replace(pos=parts.pos + dt * u2), geom)
+
+
+def _composite_mac_velocity(levels, pos):
+    """The velocity at the particle positions from the finest level that
+    contains each particle (AmrTracerParticleContainer: a particle lives on
+    the finest level whose grids contain it). levels: (umac, Geometry)
+    pairs from coarse to fine, the finer geometries patch boxes in absolute
+    coordinates. A particle counts as on a finer level while it is at least
+    one cell inside its patch (the interpolation then needs no ghosts)."""
+    u = _interp_mac(levels[0][0], pos, levels[0][1])
+    for umac_l, geom_l in levels[1:]:
+        inside = None
+        for e in range(geom_l.dim):
+            lo = geom_l.prob_lo[e] + geom_l.dx[e]
+            hi = geom_l.prob_hi[e] - geom_l.dx[e]
+            m = (pos[:, e] >= lo) & (pos[:, e] <= hi)
+            inside = m if inside is None else inside & m
+        u = torch.where(inside[:, None], _interp_mac(umac_l, pos, geom_l), u)
+    return u
+
+
+def advect_with_umac_levels(parts: Particles, levels, dt) -> Particles:
+    """RK2 midpoint advection with a hierarchy's MAC velocities (the
+    finest containing level per particle; the fine levels' should be the
+    subcycle time averages), redistributed on level 0's geometry."""
+    geom0 = levels[0][1]
+    u1 = _composite_mac_velocity(levels, parts.pos)
+    mid = _wrap(parts.pos + 0.5 * dt * u1, geom0)
+    u2 = _composite_mac_velocity(levels, mid)
+    return redistribute(parts._replace(pos=parts.pos + dt * u2), geom0)
 
 
 def _wrap(pos, geom: Geometry):

@@ -14,8 +14,10 @@ componentwise scalar system
 
 with the transpose part X_c(u) = sum_j d_j(mu d_c u_j) lagged at the
 previous iterate, each through the cell multigrid (ops/mg.py, whose
-smoother is the mg_cell_gsrb kernel on the card). The sync-correction solves
-of AMR (diffuse_vsync, diffuse_ssync) are not ported.
+smoother is the mg_cell_gsrb kernel on the card).
+
+Also here: the implicit solves on AMR's sync corrections (diffuse_vsync,
+diffuse_ssync; the reference's diffuse_Vsync / diffuse_Ssync).
 """
 
 from __future__ import annotations
@@ -85,3 +87,40 @@ def diffuse_tensor_velocity(
             comps.append(u_c)
         u = torch.stack(comps)
     return u
+
+
+def diffuse_vsync(cfg, bcp, vsync, rho_half, mu_f, dt, theta: float, rtol: float = 1e-8,
+                  fixed_cycles: Optional[int] = None):
+    """The implicit viscous solve on the velocity sync correction
+    (diffuse_Vsync / diffuse_tensor_Vsync):
+
+        (rho_half - theta dt div mu grad) V = rho_half Vsync
+
+    with the homogeneous form of the velocity BCs (the correction vanishes
+    at inflow faces and walls); the cross terms enter through one lagged
+    update (the correction is a small field). One scalar solve per
+    component."""
+    if mu_f is None:
+        return vsync
+    x_k = tensor_cross_terms(cfg, bcp, vsync, mu_f)
+    comps = []
+    for c in range(cfg.dim):
+        vbc, _ = bcp.vel_diff_bc(c)
+        v_c, _, _ = mg.mg_solve(rho_half * vsync[c] + theta * dt * x_k[c], rho_half, mu_f, 1.0,
+                                theta * dt, cfg.geom.dx, vbc, phi0=vsync[c], rtol=rtol,
+                                fixed_cycles=fixed_cycles)
+        comps.append(v_c)
+    return torch.stack(comps)
+
+
+def diffuse_ssync(cfg, bcp, ssync, rho_new, beta_f, dt, theta: float, scomp: int,
+                  rtol: float = 1e-8, fixed_cycles: Optional[int] = None):
+    """The implicit diffusion solve on a scalar sync correction
+    (diffuse_Ssync): (rho^{n+1} - theta dt div beta grad) S = rho^{n+1} Ssync,
+    with the homogeneous form of the scalar's BCs."""
+    if beta_f is None:
+        return ssync
+    sbc, _ = bcp.scal_diff_bc(scomp)
+    s, _, _ = mg.mg_solve(rho_new * ssync, rho_new, beta_f, 1.0, theta * dt, cfg.geom.dx, sbc,
+                          phi0=ssync, rtol=rtol, fixed_cycles=fixed_cycles)
+    return s

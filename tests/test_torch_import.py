@@ -1,7 +1,8 @@
 """The PyTorch port imports neither JAX nor the JAX package: every
 iamr_tpu_torch module (the output modules io.*, ns.derive, plugins,
 utils.fileio, the __main__ of `python -m iamr_tpu_torch`, ops.bds,
-ns.les, solvers.tensor and the EB modules eb.geom and eb.redist among
+ns.les, solvers.tensor, the EB modules eb.geom and eb.redist and the AMR
+modules amr.hierarchy, amr.sync, amr.multilevel and amr.tagging among
 them), and
 chip_smoke.py, load in a fresh interpreter with no 'jax', 'jax.*',
 'iamr_tpu' or 'iamr_tpu.*' module in sys.modules (the GPU machine has no
@@ -39,10 +40,11 @@ import iamr_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(iamr_tpu_torch.__path__, "iamr_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 48, names
+assert len(names) >= 53, names
 for name in ("ns.checks", "ns.derive", "plugins", "io.vismf", "io.plotfile", "io.checkpoint",
              "io.amrex_chk", "utils.fileio", "__main__", "ops.bds", "ns.les",
-             "solvers.tensor", "eb.geom", "eb.redist"):
+             "solvers.tensor", "eb.geom", "eb.redist", "amr.hierarchy", "amr.sync",
+             "amr.multilevel", "amr.tagging"):
     assert "iamr_tpu_torch." + name in names, (name, names)
 """ + FOREIGN
 

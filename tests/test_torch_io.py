@@ -11,8 +11,10 @@
   * the initial data of prob.ic_file and ns.velocity_plotfile;
   * a port restart (HIT 16^3 with particles through run_from_inputs)
     continues bit for bit, and stays on the FFT path it started on;
-  * the refusals of what is not ported (amr.max_level >= 1,
-    amr.regrid_file) and of an unknown eb2.geom_type (a sphere runs),
+  * the refusals of what is not ported (a level of more than one box: an
+    amr.regrid_file level of two boxes, the dynamic regrid of
+    amr.max_level = 2; amr.max_level = 1 runs) and of an unknown
+    eb2.geom_type (a sphere runs),
     ns.debug_nans, and the CLI's refusal to run without a card unless
     given --device=cpu.
 """
@@ -276,23 +278,44 @@ def test_port_restart_is_bit_for_bit(tmp_path):
 @pytest.mark.parametrize("override,key", [
     ("amr.max_level=1", "amr.max_level"), ("amr.regrid_file=grids.txt", "amr.regrid_file"),
     ("eb2.geom_type=sphere", "eb2.geom_type")])
-def test_cli_refuses_unported_inputs(override, key):
-    """AMR is refused before any work, naming the key. EB is ported: the
-    CLI runs eb2.geom_type = sphere, and refuses, naming the key, only a
-    geometry name it does not know."""
+def test_cli_refuses_unported_inputs(override, key, tmp_path):
+    """What makes a level of more than one box is refused before any work,
+    naming the key: an amr.regrid_file level of two boxes, and the dynamic
+    regrid of amr.max_level = 2. AMR on single-box levels is ported: the
+    CLI runs amr.max_level = 1. EB is ported: the CLI runs eb2.geom_type =
+    sphere, and refuses, naming the key, only a geometry name it does not
+    know."""
+    extra = []
     if key == "eb2.geom_type":
         assert tmain.main([HIT, "amr.n_cell=8 8 8", override, "max_step=1",
                            "--device=cpu"]) == 0
         override = "eb2.geom_type=teapot"
+    elif key == "amr.max_level":
+        assert tmain.main([HIT, "amr.n_cell=8 8 8", override, "max_step=1",
+                           "--device=cpu"]) == 0
+        override = "amr.max_level=2"
+        extra = ["amr.regrid_int=2", "amr.refinement_indicators=vort",
+                 "amr.vort.vorticity_greater=1.0"]
+    else:
+        grids = tmp_path / "grids.txt"
+        grids.write_text("1\n2\n((0,0,0) (1,1,1) (0,0,0))\n((4,4,4) (5,5,5) (0,0,0))\n")
+        override = f"amr.regrid_file={grids}"
+        extra = ["amr.max_level=1"]
     with pytest.raises(NotImplementedError, match=key):
-        tmain.main([HIT, "amr.n_cell=8 8 8", override, "--device=cpu"])
+        tmain.main([HIT, "amr.n_cell=8 8 8", override, *extra, "--device=cpu"])
 
 
 def test_run_refuses_levels():
+    """A level of more than one box (multi-box, union, levels are not
+    ported) is refused before any work."""
     text = "amr.n_cell = 8 8 8\namr.max_level = 1\ngeometry.is_periodic = 1 1 1\n"
     cfg = tstate.config_from_inputs(TParmParse.from_string(text), device="cpu")
-    with pytest.raises(NotImplementedError, match="amr.max_level"):
-        tdriver.run(cfg, max_steps=1, device="cpu")
+    from iamr_tpu_torch.amr.hierarchy import LevelSpec
+
+    boxes = (LevelSpec(lo=(0, 0, 0), ncell=(4, 4, 4)), LevelSpec(lo=(8, 8, 8), ncell=(4, 4, 4)))
+    with pytest.raises(NotImplementedError, match="multi-box"):
+        tdriver.run_hierarchy(cfg, max_steps=1, specs=[LevelSpec(lo=(0, 0, 0), ncell=(12, 12, 12))],
+                              boxlists=[boxes], device="cpu")
 
 
 def test_debug_nans_names_the_field(tmp_path):
